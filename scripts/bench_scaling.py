@@ -18,9 +18,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("CHROM3D_AOT_CACHE", "/root/.chrom3d_aot")
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
@@ -59,13 +56,14 @@ def synthetic_structured_matrix(L, seed=0):
 
 def synthetic_matrix_device(L, seed=0):
     """Same statistics, generated ON device: at L >= 16384 the host RNG +
-    O(L^2) numpy passes cost minutes on this single-vCPU box while the
-    device program is milliseconds (see ops/device_prep.py).
+    O(L^2) numpy passes cost minutes on a host with little memory
+    bandwidth while the device program is milliseconds (see
+    ops/device_prep.py).
 
     Gamma(2, 50) is sampled as -50*(log U1 + log U2) — the Erlang identity —
     instead of jax.random.gamma: the generic gamma rejection sampler's
     threefry-split while loop materializes a u32[L*L, 3] temp (~16 GB HLO
-    temp at L=16384, a measured compile-time OOM on v5e)."""
+    temp at L=16384)."""
     import jax
     import jax.numpy as jnp
 
@@ -97,7 +95,7 @@ def synthetic_matrix_host_strips(L, strip=4096):
     import jax
     import jax.numpy as jnp
 
-    from chromosome3d_tpu.ops.device_prep import _pick_strip_rows
+    from chromosome3d.ops.device_prep import _pick_strip_rows
 
     S = _pick_strip_rows(L, cap=strip)
 
@@ -127,9 +125,10 @@ def synthetic_matrix_host_strips(L, strip=4096):
 def synthetic_tiles_device(L, rc, weighting, p, out_dtype="float32"):
     """ExactRestraints synthesized DIRECTLY on device — no (L, L) IF matrix
     is ever resident. This is the SOLVE-feasibility probe past the one-shot
-    prep ceiling (DESIGN.md: L = 49152 OOMs in PREP because the f32 IF
-    upload + the bf16 output tiles together exceed one v5e's HBM; whether
-    the SOLVE fits there is a separate question this mode answers). Targets
+    prep ceiling (the one-shot prep holds the f32 IF upload and the
+    output tiles together, ~8*L^2 bytes, twice the bf16 solve's tiles;
+    whether the SOLVE fits past it is a separate question this mode
+    answers). Targets
     follow the equilibrium-globule scaling d ~ |i-j|^(1/3) with the same
     %.1f quantization and separation mask device prep emits, so the solve
     sees production-shaped tiles; every input is iota-derived, so XLA fuses
@@ -138,7 +137,7 @@ def synthetic_tiles_device(L, rc, weighting, p, out_dtype="float32"):
     import jax
     import jax.numpy as jnp
 
-    from chromosome3d_tpu.ops.device_prep import _weights_from_target
+    from chromosome3d.ops.device_prep import _weights_from_target
 
     sep = int(rc.separation)
 
@@ -156,7 +155,7 @@ def synthetic_tiles_device(L, rc, weighting, p, out_dtype="float32"):
         if dt_name != "float32":
             dt = jnp.dtype(dt_name)
             t, w = t.astype(dt), w.astype(dt)
-        from chromosome3d_tpu.ops.energy import ExactRestraints
+        from chromosome3d.ops.energy import ExactRestraints
 
         return ExactRestraints(target=t, w=w)
 
@@ -179,14 +178,14 @@ def main():
     ap.add_argument("--host-prep", action="store_true",
                     help="build the synthetic matrix and restraint tiles on "
                          "the HOST (the reference-semantics f64 route) "
-                         "instead of on device; minutes-per-case at "
-                         "L >= 8192 on a single-vCPU box")
+                         "instead of on device; minutes per case at "
+                         "L >= 8192")
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 restraint tiles (AnnealConfig.pair_bf16)")
     ap.add_argument("--quality", action="store_true",
                     help="score best Spearman(IF, 1/d) of the ensemble "
                          "against the synthetic matrix (host scipy; "
-                         "practical to L ~ 4096 on this single-vCPU box)")
+                         "practical to L ~ 4096)")
     ap.add_argument("--tiles-only", action="store_true",
                     help="synthesize the ExactRestraints tiles directly on "
                          "device (no IF matrix ever resident) — the solve-"
@@ -209,22 +208,26 @@ def main():
 
     import dataclasses
 
-    from chromosome3d_tpu.config import AnnealConfig, RestraintConfig, turbo_anneal
-    from chromosome3d_tpu.ops.energy import (
+    from chromosome3d.utils.aot import DEFAULT_CACHE_DIR
+    from chromosome3d.utils.cache import configure_compile_cache
+
+    configure_compile_cache()
+    os.environ.setdefault("CHROM3D_AOT_CACHE", DEFAULT_CACHE_DIR)
+
+    from chromosome3d.config import AnnealConfig, RestraintConfig, turbo_anneal
+    from chromosome3d.ops.energy import (
         dense_restraints_from_numpy,
         exact_restraints_from_numpy,
     )
-    from chromosome3d_tpu.restraints import build_restraints
-    from chromosome3d_tpu.solver.anneal import solve_ensemble
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
+    from chromosome3d.restraints import build_restraints
+    from chromosome3d.solver.anneal import solve_ensemble
+    from chromosome3d.solver.sharded import solve_ensemble_sharded
 
     platform = jax.devices()[0].platform
-    # build_restraints always yields exact restraints -> fast kernel is valid.
-    # use_pallas also drives the SHARDED path since round 4: the shard body
-    # gates on resolve_use_pallas(cfg) and runs the strip-triangular pair
-    # kernel + fused update companion (solver/sharded.py:264-283).
+    # build_restraints always yields exact restraints; the pair route
+    # (GPU kernel or plain path) is AnnealConfig's AUTO choice, on the
+    # single-device and the sharded solver alike
     cfg = turbo_anneal(AnnealConfig(
-        use_pallas=(platform == "tpu"),
         exact_restraints=True,
         pair_bf16=args.bf16,
     ))
@@ -240,10 +243,9 @@ def main():
         # free the previous case's device tiles BEFORE building the next:
         # a multi-size sweep near the HBM ceiling otherwise holds the old
         # (L, L) tensors alive through the new prep (measured OOM at
-        # 36864-after-32768 that the same size solves alone). Note: even
-        # with this, CEILING sizes (40960-after-36864) can still OOM on
-        # the remote backend (async frees/fragmentation) — measure the
-        # last ~10% of the ceiling one size per process
+        # 36864-after-32768 that the same size solves alone). Measure
+        # the last ~10% of the ceiling one size per process (async frees
+        # and fragmentation can still bite there)
         dense = res = coords = None
         gen = synthetic_structured_matrix if args.structured else synthetic_matrix
         m_host = (
@@ -252,7 +254,7 @@ def main():
         )
         t_prep = time.time()
         if args.tiles_only:
-            from chromosome3d_tpu.ops.energy import auto_weight_exponent
+            from chromosome3d.ops.energy import auto_weight_exponent
 
             dense = synthetic_tiles_device(
                 L, rc, rc.weighting,
@@ -267,12 +269,12 @@ def main():
                 synthetic_matrix(L) if m_host is None else m_host, rc
             ))
         else:
-            from chromosome3d_tpu.ops.device_prep import exact_tiles_from_if_device
-            from chromosome3d_tpu.ops.energy import auto_weight_exponent
+            from chromosome3d.ops.device_prep import exact_tiles_from_if_device
+            from chromosome3d.ops.energy import auto_weight_exponent
 
             import jax.numpy as jnp
 
-            from chromosome3d_tpu.ops.device_prep import should_stream_prep
+            from chromosome3d.ops.device_prep import should_stream_prep
 
             dtname = "bfloat16" if args.bf16 else "float32"
             if should_stream_prep(L, dtname) and m_host is None:
@@ -331,7 +333,7 @@ def main():
             peak_gb = None
         best_sp = None
         if m_host is not None:
-            from chromosome3d_tpu.metrics import spearman_if_inv_d
+            from chromosome3d.metrics import spearman_if_inv_d
 
             best_sp = round(
                 max(float(spearman_if_inv_d(m_host, c)) for c in coords), 4

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Compare a finished `chromosome3d genome` output tree against the
-published reference models: for every chromosome x resolution with a
+published reference models (the reference checkout named by
+CHROM3D_REFERENCE): for every chromosome x resolution with a
 shipped rankNN model, our run's best Spearman(IF, 1/d) (from the run's
 own summary.json) vs the published model's score on the same matrix.
 
 This is the PRODUCT-SURFACE twin of scripts/validate_genome.py (which
-solves through the library API): point it at a real `genome` run — e.g.
-the round-5 `genome --pallas` chip run — and it answers "did the
-production path beat the reference on every input" without re-solving.
+solves through the library API): point it at a real `genome` run and
+it answers "did the production path beat the reference on every input"
+without re-solving.
 
 Usage: python scripts/check_genome_vs_published.py <genome_output_dir>
 """
@@ -20,7 +21,7 @@ import sys
 
 import numpy as np
 
-REF = "/root/reference"
+REF = os.environ.get("CHROM3D_REFERENCE", "")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -33,9 +34,9 @@ def main():
         summary = json.load(f)
     chroms = summary["chromosomes"]
 
-    from chromosome3d_tpu.io.matrix import load_if_matrix
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
-    from chromosome3d_tpu.metrics import spearman_if_inv_d
+    from chromosome3d.io.matrix import load_if_matrix
+    from chromosome3d.io.pdb import read_ca_pdb
+    from chromosome3d.metrics import spearman_if_inv_d
 
     refs = {}
     for p in glob.glob(os.path.join(REF, "output_models", "chr*_rank*_a11.pdb")):

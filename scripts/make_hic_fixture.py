@@ -3,7 +3,7 @@
 
 Hand-assembles juicer `.hic` (v8 and v9) and cooler `.cool` files directly
 from the PUBLISHED format specs (github.com/aidenlab/hic-format; the cooler
-HDF5 schema) — deliberately importing NOTHING from chromosome3d_tpu, so the
+HDF5 schema) — deliberately importing NOTHING from chromosome3d, so the
 repo's readers are exercised against an independent spec interpretation.
 The expected dense matrices are computed straight from the record lists
 chosen here and frozen alongside as .npy.

@@ -1,18 +1,14 @@
 #!/usr/bin/env python3
-"""CPU-mesh sanity curve for the sp scaling model (DESIGN.md round-5).
+"""CPU-mesh sanity curve for the row-sharded (sp) solver.
 
 Runs the row-sharded ensemble solve at n_dev in {1, 2, 4, 8} on the
-virtual CPU mesh (8 fake devices sharing ONE physical core) at fixed
+virtual CPU mesh (8 fake devices sharing the host's cores) at fixed
 (L, B) and reports per-step wall normalized to n_dev=1. Absolute times
-mean nothing here; the SHAPE does: total pair work is constant across
-n_dev (the strip-triangular pairing computes each unordered tile pair
-once across shards), the update companion replicates, so the normalized
-cost should sit ~flat near 1.0 — any strong growth with n_dev would mean
-the collectives/glue add real per-step overhead, falsifying the
-T_allreduce ~ 0 term of the model before hardware ever does.
-
-The round-5 measured curve is recorded in DESIGN.md ("The sp scaling
-model"); re-run this script to refresh it.
+mean nothing here and are no device measurement; the SHAPE does: total
+pair work is constant across n_dev (each shard computes its own rows
+against all columns), the update replicates, so the normalized cost
+should sit near 1.0 — strong growth with n_dev would mean the
+collectives/glue add real per-step overhead.
 
 Usage:
   python scripts/sp_mesh_curve.py [--L 2048] [--models 2] [--repeats 3]
@@ -46,9 +42,9 @@ def main():
     import numpy as np
     from jax.sharding import Mesh
 
-    from chromosome3d_tpu.config import AnnealConfig, turbo_anneal
-    from chromosome3d_tpu.ops.energy import DenseRestraints
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
+    from chromosome3d.config import AnnealConfig, turbo_anneal
+    from chromosome3d.ops.energy import DenseRestraints
+    from chromosome3d.solver.sharded import solve_ensemble_sharded
 
     L = args.L
     rng = np.random.RandomState(L)

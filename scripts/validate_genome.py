@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Genome-wide quality validation: for every shipped chromosome x resolution
 input, solve an ensemble and compare best Spearman(IF, 1/d) against the
-published reference model in /root/reference/output_models.
+published reference model in the reference checkout named by
+CHROM3D_REFERENCE (its input/ and output_models/ directories).
 
 Writes VALIDATION.md at the repo root. Usage:
-    python scripts/validate_genome.py [--models 4] [--alpha 0.5] [--pallas]
+    CHROM3D_REFERENCE=<reference checkout> \
+        python scripts/validate_genome.py [--models 4] [--alpha 0.5] [--pallas]
 """
 
 import argparse
@@ -15,12 +17,9 @@ import re
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("CHROM3D_AOT_CACHE", "/root/.chrom3d_aot")
-
 import numpy as np
 
-REF = "/root/reference"
+REF = os.environ.get("CHROM3D_REFERENCE", "")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
@@ -36,13 +35,13 @@ def crossres_section(args, jax):
     best-agreeing model rather than a fixed rank."""
     import itertools
 
-    from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, RestraintConfig
-    from chromosome3d_tpu.io.matrix import load_if_matrix
-    from chromosome3d_tpu.metrics import cross_resolution_similarity
-    from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-    from chromosome3d_tpu.restraints import build_restraints
-    from chromosome3d_tpu.similarity import read_similarity_report
-    from chromosome3d_tpu.solver.anneal import solve_ensemble
+    from chromosome3d.config import AnnealConfig, PipelineConfig, RestraintConfig
+    from chromosome3d.io.matrix import load_if_matrix
+    from chromosome3d.metrics import cross_resolution_similarity
+    from chromosome3d.ops.energy import dense_restraints_from_numpy
+    from chromosome3d.restraints import build_restraints
+    from chromosome3d.similarity import read_similarity_report
+    from chromosome3d.solver.anneal import solve_ensemble
 
     published = {}
     for name, (rho, rmsd) in read_similarity_report(
@@ -53,7 +52,7 @@ def crossres_section(args, jax):
             published.setdefault(m.group(1), (rho, rmsd))
 
     alphas = sorted({args.alpha, 0.7})
-    anneal = AnnealConfig(use_pallas=args.pallas)
+    anneal = AnnealConfig(use_pallas=True if args.pallas else None)
     seed = PipelineConfig().seed
 
     def pool(matrix):
@@ -137,14 +136,24 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    if not os.path.isdir(os.path.join(REF, "output_models")):
+        print("set CHROM3D_REFERENCE to a checkout of the reference",
+              file=sys.stderr)
+        return 2
 
-    from chromosome3d_tpu.config import AnnealConfig, RestraintConfig
-    from chromosome3d_tpu.io.matrix import load_if_matrix
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
-    from chromosome3d_tpu.metrics import spearman_if_inv_d
-    from chromosome3d_tpu.ops.energy import auto_weight_exponent, dense_restraints_from_numpy
-    from chromosome3d_tpu.restraints import build_restraints
-    from chromosome3d_tpu.solver.anneal import solve_ensemble
+    from chromosome3d.utils.aot import DEFAULT_CACHE_DIR
+    from chromosome3d.utils.cache import configure_compile_cache
+
+    configure_compile_cache()
+    os.environ.setdefault("CHROM3D_AOT_CACHE", DEFAULT_CACHE_DIR)
+
+    from chromosome3d.config import AnnealConfig, RestraintConfig
+    from chromosome3d.io.matrix import load_if_matrix
+    from chromosome3d.io.pdb import read_ca_pdb
+    from chromosome3d.metrics import spearman_if_inv_d
+    from chromosome3d.ops.energy import auto_weight_exponent, dense_restraints_from_numpy
+    from chromosome3d.restraints import build_restraints
+    from chromosome3d.solver.anneal import solve_ensemble
 
     refs = {}
     for p in glob.glob(os.path.join(REF, "output_models", "chr*_rank*_a11.pdb")):
@@ -153,7 +162,7 @@ def main():
             refs[m.group(1)] = p
 
     rc = RestraintConfig(alpha=args.alpha)
-    cfg = AnnealConfig(use_pallas=args.pallas)
+    cfg = AnnealConfig(use_pallas=True if args.pallas else None)
     rows, wins, total = [], 0, 0
     t00 = time.time()
     for name in sorted(refs, key=lambda n: (int(re.match(r"chr(\d+)", n).group(1)), n)):

@@ -2,7 +2,7 @@
 # Test oracle: drive the reference's OWN restraint-generation subs
 # (IF2dist_new, dist2rr, carr2tbl — chromosome3D.pl:110-206, 340-362) on a
 # matrix file, producing oracle.dist / oracle.rr / oracle.tbl for byte-level
-# comparison against chromosome3d_tpu's artifacts. The subs are extracted
+# comparison against chromosome3d's artifacts. The subs are extracted
 # textually from the reference script (they are CNS-independent) and eval'd;
 # nothing here reimplements their logic.
 #

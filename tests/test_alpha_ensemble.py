@@ -4,14 +4,14 @@ import os
 
 import pytest
 
-from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
+from chromosome3d.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
 
 REF_INPUT = "/root/reference/input"
 
 
 def test_pipeline_alpha_ensemble(tmp_path):
-    from chromosome3d_tpu.io.pdb import read_pdb_remarks
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.io.pdb import read_pdb_remarks
+    from chromosome3d.pipeline import run_pipeline
 
     src = os.path.join(REF_INPUT, "chr22_1mb_matrix.txt")
     if not os.path.exists(src):
@@ -35,7 +35,7 @@ def test_pipeline_alpha_ensemble(tmp_path):
 
 
 def test_cli_alpha_ensemble_parsing():
-    from chromosome3d_tpu.cli import _make_config
+    from chromosome3d.cli import _make_config
     import argparse
 
     ns = argparse.Namespace(
@@ -51,8 +51,8 @@ def test_genome_alpha_ensemble(tmp_path):
     as run_pipeline (quality mode on the mesh path)."""
     import os
 
-    from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
-    from chromosome3d_tpu.parallel.genome import GenomeJob, run_genome
+    from chromosome3d.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
+    from chromosome3d.parallel.genome import GenomeJob, run_genome
 
     src = "/root/reference/input/chr22_1mb_matrix.txt"
     if not os.path.exists(src):

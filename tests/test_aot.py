@@ -1,7 +1,6 @@
 """AOT serialized-executable cache (utils/aot.py): compile-once semantics,
 cross-instance reload, graceful fallback on corrupt entries. Runs on CPU —
-the serialize/deserialize path is backend-generic (verified on the real
-remote-TPU backend separately; see DESIGN.md)."""
+the serialize/deserialize path is backend-generic."""
 
 import os
 import pickle
@@ -10,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from chromosome3d_tpu.utils.aot import cache_key, load_or_compile
+from chromosome3d.utils.aot import cache_key, load_or_compile
 
 
 def _f():
@@ -28,8 +27,7 @@ def test_save_then_load(tmp_path):
     """A fresh load_or_compile over the same dir resolves through the cached
     blob. (XLA:CPU may reject the blob at dispatch — machine-feature
     strictness — in which case the _GuardedExec fallback recompiles; either
-    way the call must succeed with identical results. The fast-reload path
-    itself is verified on the real TPU backend: 0.06 s load.)"""
+    way the call must succeed with identical results.)"""
     x, y = jnp.ones((8, 8)), jnp.full((8, 8), 2.0)
     c1 = load_or_compile(_f(), (x, y), tag="mm", cache_dir=str(tmp_path))
     files = [p for p in os.listdir(tmp_path) if p.endswith(".aotx")]
@@ -64,8 +62,8 @@ def test_corrupt_entry_falls_back(tmp_path):
 def test_genome_bucket_roundtrip(tmp_path, monkeypatch):
     """run_genome with CHROM3D_AOT_CACHE writes a bucket executable and a
     second run loads it — end to end through the production runner."""
-    from chromosome3d_tpu.config import AnnealConfig, PipelineConfig
-    from chromosome3d_tpu.parallel.genome import run_genome
+    from chromosome3d.config import AnnealConfig, PipelineConfig
+    from chromosome3d.parallel.genome import run_genome
 
     rng = np.random.RandomState(0)
     in_dir = tmp_path / "in"
@@ -98,8 +96,8 @@ def test_genome_bucket_roundtrip(tmp_path, monkeypatch):
 def test_run_pipeline_aot_roundtrip(tmp_path, monkeypatch):
     """run_pipeline with CHROM3D_AOT_CACHE saves the bucket executable and a
     second process-equivalent run loads it with identical results."""
-    from chromosome3d_tpu.config import AnnealConfig, PipelineConfig
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.config import AnnealConfig, PipelineConfig
+    from chromosome3d.pipeline import run_pipeline
 
     rng = np.random.RandomState(2)
     L = 20
@@ -125,11 +123,11 @@ def test_run_pipeline_aot_roundtrip(tmp_path, monkeypatch):
 
 def test_device_prep_aot_roundtrip(tmp_path, monkeypatch):
     """The at-scale device-prep programs ride the AOT cache too: a fresh
-    process re-running a known bucket shape must skip the (remote) compile
+    process re-running a known bucket shape must skip the compile
     for the PREP, not just the solve — otherwise the solve blobs' cold-start
     win is bounded by the prep's compile."""
-    from chromosome3d_tpu.config import RestraintConfig
-    from chromosome3d_tpu.ops.device_prep import exact_tiles_from_if_device
+    from chromosome3d.config import RestraintConfig
+    from chromosome3d.ops.device_prep import exact_tiles_from_if_device
 
     rng = np.random.RandomState(5)
     L = 12
@@ -151,8 +149,8 @@ def test_device_prep_bucket_aot_roundtrip(tmp_path, monkeypatch):
     """The batched (genome at-scale bucket) prep program rides the cache
     too — it adds vmap + a donated (B, L, L) stack over the single-matrix
     program, so pin its serialize/reload separately."""
-    from chromosome3d_tpu.config import RestraintConfig
-    from chromosome3d_tpu.ops.device_prep import (
+    from chromosome3d.config import RestraintConfig
+    from chromosome3d.ops.device_prep import (
         exact_tiles_from_if_batched_device,
     )
 
@@ -177,7 +175,7 @@ def test_device_prep_bucket_aot_roundtrip(tmp_path, monkeypatch):
 def test_guarded_retry_recompiles_when_inputs_survive(tmp_path):
     """A cached executable that fails at dispatch WITHOUT consuming its
     inputs is recompiled in place and the poisoned entry evicted."""
-    from chromosome3d_tpu.utils.aot import _GuardedExec
+    from chromosome3d.utils.aot import _GuardedExec
 
     poisoned = tmp_path / "t-dead-beef.aotx"
     poisoned.write_bytes(b"x")
@@ -201,7 +199,7 @@ def test_guarded_retry_donated_inputs_consumed(tmp_path):
     raise a clear error instead of a confusing low-level one."""
     import pytest
 
-    from chromosome3d_tpu.utils.aot import _GuardedExec
+    from chromosome3d.utils.aot import _GuardedExec
 
     poisoned = tmp_path / "t-dead-beef.aotx"
     poisoned.write_bytes(b"x")
@@ -223,7 +221,7 @@ def test_code_fingerprint_in_key(tmp_path, monkeypatch):
     """The cache key embeds a fingerprint of the package source: editing
     any module must invalidate cached executables (a serialized executable
     embeds the COMPILED code; shapes/config cannot see a bug fix)."""
-    import chromosome3d_tpu.utils.aot as aot
+    import chromosome3d.utils.aot as aot
 
     args = (jnp.ones((4, 4)), jnp.ones((4, 4)))
     k1 = cache_key("t", args, "s")
@@ -235,7 +233,7 @@ def test_code_fingerprint_in_key(tmp_path, monkeypatch):
 def test_prune_keeps_siblings_drops_stale(tmp_path, monkeypatch):
     """Saving prunes same-tag entries from OLDER source fingerprints but
     keeps current-source siblings (other shapes/buckets)."""
-    import chromosome3d_tpu.utils.aot as aot
+    import chromosome3d.utils.aot as aot
 
     # two current-source entries with different shapes
     load_or_compile(_f(), (jnp.ones((8, 8)), jnp.ones((8, 8))), tag="t",
@@ -257,7 +255,7 @@ def test_event_marks_survive_truncation():
     list indices would silently shift once the drop-oldest cap truncates
     (round-5 review): a long-lived serve process crossing 256 events must
     not mis-attribute other work's compile time."""
-    from chromosome3d_tpu.utils import aot
+    from chromosome3d.utils import aot
 
     saved = list(aot.EVENTS)
     try:

@@ -4,8 +4,8 @@ ssnoe_tbl_min_pdb_dist, chromosome3D.pl:487-554)."""
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.assess import assess_pdb_vs_tbl, min_group_distance, parse_tbl_rows
-from chromosome3d_tpu.config import PipelineConfig
+from chromosome3d.assess import assess_pdb_vs_tbl, min_group_distance, parse_tbl_rows
+from chromosome3d.config import PipelineConfig
 
 
 def test_parse_simple_rows(tmp_path):
@@ -61,9 +61,9 @@ def test_assess_matches_pipeline_tbl(tmp_path, tiny_matrix):
     """Cross-check against the vectorized violation_stats on a generated tbl."""
     import jax.numpy as jnp
 
-    from chromosome3d_tpu.config import RestraintConfig
-    from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy, violation_stats
-    from chromosome3d_tpu.restraints import if_to_dist, write_contact_tbl, write_rr, build_restraints
+    from chromosome3d.config import RestraintConfig
+    from chromosome3d.ops.energy import dense_restraints_from_numpy, violation_stats
+    from chromosome3d.restraints import if_to_dist, write_contact_tbl, write_rr, build_restraints
 
     rc = RestraintConfig()
     d = if_to_dist(tiny_matrix, rc)
@@ -90,13 +90,13 @@ def test_assess_ensemble_matches_violation_stats():
     import jax.numpy as jnp
     import numpy as np
 
-    from chromosome3d_tpu.assess import assess_ensemble
-    from chromosome3d_tpu.config import PipelineConfig, RestraintConfig
-    from chromosome3d_tpu.ops.energy import (
+    from chromosome3d.assess import assess_ensemble
+    from chromosome3d.config import PipelineConfig, RestraintConfig
+    from chromosome3d.ops.energy import (
         dense_restraints_from_numpy,
         violation_stats,
     )
-    from chromosome3d_tpu.restraints import build_restraints
+    from chromosome3d.restraints import build_restraints
 
     rng = np.random.RandomState(5)
     L = 40
@@ -159,7 +159,7 @@ def test_tbl_report_vectorized_matches_loop_oracle(tmp_path):
     """The vectorized write_tbl_violation_report must emit byte-identical
     output (and identical stats) to the per-row loop it replaced — mixed
     single-pair, reversed, duplicate, and or-group rows."""
-    from chromosome3d_tpu.assess import write_tbl_violation_report
+    from chromosome3d.assess import write_tbl_violation_report
 
     rng = np.random.RandomState(3)
     L = 30
@@ -208,7 +208,7 @@ def test_tbl_row_distances_at_scale():
     it."""
     import time
 
-    from chromosome3d_tpu.assess import tbl_row_distances
+    from chromosome3d.assess import tbl_row_distances
 
     rng = np.random.RandomState(0)
     L = 5000
@@ -239,9 +239,9 @@ def test_violation_report_truncates_beyond_reference_scale(tmp_path, monkeypatch
     (plus a summary line) — the totals returned are unchanged."""
     import numpy as np
 
-    import chromosome3d_tpu.assess as assess
-    from chromosome3d_tpu.config import PipelineConfig, RestraintConfig
-    from chromosome3d_tpu.restraints import build_restraints
+    import chromosome3d.assess as assess
+    from chromosome3d.config import PipelineConfig, RestraintConfig
+    from chromosome3d.restraints import build_restraints
 
     rng = np.random.RandomState(0)
     L = 20

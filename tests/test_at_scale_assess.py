@@ -7,10 +7,10 @@ reference implementations by lowering the thresholds on small inputs."""
 import numpy as np
 import pytest
 
-import chromosome3d_tpu.assess as assess_mod
-import chromosome3d_tpu.metrics as metrics_mod
-from chromosome3d_tpu.config import PipelineConfig, RestraintConfig
-from chromosome3d_tpu.restraints import build_restraints
+import chromosome3d.assess as assess_mod
+import chromosome3d.metrics as metrics_mod
+from chromosome3d.config import PipelineConfig, RestraintConfig
+from chromosome3d.restraints import build_restraints
 
 
 @pytest.fixture()
@@ -22,7 +22,7 @@ def case(tiny_matrix):
 
 
 def test_assess_ensemble_chunked_matches(case):
-    from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
+    from chromosome3d.ops.energy import dense_restraints_from_numpy
 
     r, coords = case
     dense = dense_restraints_from_numpy(r, as_numpy=True)

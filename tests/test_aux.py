@@ -10,7 +10,7 @@ REF = "/root/reference"
 
 
 def test_genome_checkpoint_roundtrip(tmp_path):
-    from chromosome3d_tpu.utils.checkpoint import GenomeCheckpoint
+    from chromosome3d.utils.checkpoint import GenomeCheckpoint
 
     ck = GenomeCheckpoint(str(tmp_path))
     assert not ck.has("chr9_1mb")
@@ -27,7 +27,7 @@ def test_genome_checkpoint_roundtrip(tmp_path):
 def test_solver_state_roundtrip(tmp_path):
     import jax
 
-    from chromosome3d_tpu.utils.checkpoint import load_solver_state, save_solver_state
+    from chromosome3d.utils.checkpoint import load_solver_state, save_solver_state
 
     path = str(tmp_path / "state.npz")
     coords = np.random.RandomState(1).randn(8, 3)
@@ -40,9 +40,9 @@ def test_solver_state_roundtrip(tmp_path):
 
 
 def test_coverage_string(tiny_matrix):
-    from chromosome3d_tpu.assess import coverage_string
-    from chromosome3d_tpu.config import RestraintConfig
-    from chromosome3d_tpu.restraints import build_restraints
+    from chromosome3d.assess import coverage_string
+    from chromosome3d.config import RestraintConfig
+    from chromosome3d.restraints import build_restraints
 
     r = build_restraints(tiny_matrix, RestraintConfig())
     s = coverage_string(r)
@@ -56,9 +56,9 @@ def test_coverage_string(tiny_matrix):
 def test_violation_coverage_string(tiny_matrix):
     import jax.numpy as jnp
 
-    from chromosome3d_tpu.assess import violation_coverage_string
-    from chromosome3d_tpu.config import PipelineConfig, RestraintConfig
-    from chromosome3d_tpu.restraints import build_restraints
+    from chromosome3d.assess import violation_coverage_string
+    from chromosome3d.config import PipelineConfig, RestraintConfig
+    from chromosome3d.restraints import build_restraints
 
     r = build_restraints(tiny_matrix, RestraintConfig())
     cfg = PipelineConfig()
@@ -68,8 +68,8 @@ def test_violation_coverage_string(tiny_matrix):
 
 
 def test_similarity_report(tmp_path):
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
-    from chromosome3d_tpu.similarity import similarity_report, write_reduced_model
+    from chromosome3d.io.pdb import read_ca_pdb
+    from chromosome3d.similarity import similarity_report, write_reduced_model
 
     hi = os.path.join(REF, "output_models", "chr13_500kb_rank10_a11.pdb")
     lo = os.path.join(REF, "output_models", "chr13_1mb_rank05_a11.pdb")
@@ -93,7 +93,7 @@ def test_similarity_report(tmp_path):
 def test_reduced_pdb_published_byte_format(tmp_path):
     """write_reduced_pdb reproduces the shipped reduced layout byte-for-byte
     (chain B glued to resid, occ 0.20, b 10.00, CRLF, leading blank line)."""
-    from chromosome3d_tpu.io.pdb import read_ca_pdb, write_reduced_pdb
+    from chromosome3d.io.pdb import read_ca_pdb, write_reduced_pdb
 
     shipped = os.path.join(
         REF, "output_models", "chr12_500kb_rank02_a11_reduced.pdb"
@@ -107,7 +107,7 @@ def test_reduced_pdb_published_byte_format(tmp_path):
 
 
 def _require_native():
-    from chromosome3d_tpu import native
+    from chromosome3d import native
 
     if not native.available():
         # build on demand (the .so is deliberately not committed)
@@ -125,7 +125,7 @@ def _require_native():
 
 def test_native_parser_matches_python(tmp_path):
     native = _require_native()
-    from chromosome3d_tpu.io.matrix import load_if_matrix
+    from chromosome3d.io.matrix import load_if_matrix
 
     path = os.path.join(REF, "input", "chr20_500kb_matrix.txt")
     if not os.path.exists(path):
@@ -146,7 +146,7 @@ def test_native_and_python_reject_the_same_malformed_files(tmp_path):
     or without the .so — the native parser declines, and the Python loader
     raises (ADVICE r1: the old native path silently accepted both)."""
     native = _require_native()
-    from chromosome3d_tpu.io.matrix import load_if_matrix
+    from chromosome3d.io.matrix import load_if_matrix
 
     # 4 tokens = 2x2-square count, but rows of width 3 and 1 -> ragged
     ragged = tmp_path / "ragged.txt"
@@ -178,14 +178,14 @@ def test_native_and_python_reject_the_same_malformed_files(tmp_path):
 
 
 def test_profile_trace_noop():
-    from chromosome3d_tpu.utils.logging import profile_trace
+    from chromosome3d.utils.logging import profile_trace
 
     with profile_trace(None):
         pass
 
 
 def test_render_model(tmp_path):
-    from chromosome3d_tpu.render import render_model
+    from chromosome3d.render import render_model
 
     rng = np.random.RandomState(0)
     # a smooth helix so the plot exercises the position colormap
@@ -200,13 +200,13 @@ def test_solve_coinit_cross_resolution(tmp_path):
     finite coords, true length, and a sane consistency score."""
     import jax
 
-    from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
-    from chromosome3d_tpu.io.matrix import load_if_matrix
-    from chromosome3d_tpu.metrics import cross_resolution_similarity
-    from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-    from chromosome3d_tpu.restraints import build_restraints
-    from chromosome3d_tpu.similarity import solve_coinit
-    from chromosome3d_tpu.solver.anneal import solve_ensemble
+    from chromosome3d.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
+    from chromosome3d.io.matrix import load_if_matrix
+    from chromosome3d.metrics import cross_resolution_similarity
+    from chromosome3d.ops.energy import dense_restraints_from_numpy
+    from chromosome3d.restraints import build_restraints
+    from chromosome3d.similarity import solve_coinit
+    from chromosome3d.solver.anneal import solve_ensemble
 
     hi_path = os.path.join(REF, "input", "chr21_500kb_matrix.txt")
     lo_path = os.path.join(REF, "input", "chr21_1mb_matrix.txt")
@@ -232,7 +232,7 @@ def test_solve_coinit_cross_resolution(tmp_path):
 
 
 def test_read_similarity_report_published():
-    from chromosome3d_tpu.similarity import read_similarity_report
+    from chromosome3d.similarity import read_similarity_report
 
     path = os.path.join(REF, "output_models", "similarity.txt")
     if not os.path.exists(path):

@@ -8,8 +8,8 @@ import os
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.cli import main
-from chromosome3d_tpu.io.matrix import write_if_matrix
+from chromosome3d.cli import main
+from chromosome3d.io.matrix import write_if_matrix
 
 
 @pytest.fixture()

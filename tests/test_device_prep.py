@@ -6,17 +6,17 @@ resolution. Ref semantics: chromosome3D.pl:110-206 (IF2dist_new + dist2rr)."""
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.config import RestraintConfig
-from chromosome3d_tpu.ops.device_prep import (
+from chromosome3d.config import RestraintConfig
+from chromosome3d.ops.device_prep import (
     exact_tiles_from_if_device,
     exact_tiles_from_target_device,
     pad_f32,
 )
-from chromosome3d_tpu.ops.energy import (
+from chromosome3d.ops.energy import (
     auto_weight_exponent,
     exact_restraints_from_numpy,
 )
-from chromosome3d_tpu.restraints import build_restraints
+from chromosome3d.restraints import build_restraints
 
 
 def _matrix(L, seed=3):
@@ -94,7 +94,7 @@ def test_pad_f32_passthrough_and_pad():
 
 
 def test_padded_dense_device_route_matches_host():
-    from chromosome3d_tpu.pipeline import _padded_dense
+    from chromosome3d.pipeline import _padded_dense
 
     rc = RestraintConfig()
     r = build_restraints(_matrix(70), rc)
@@ -141,8 +141,8 @@ def test_device_prep_solve_equivalence():
     solve to solver-f32 resolution (same program, same seed)."""
     import jax
 
-    from chromosome3d_tpu.config import AnnealConfig, fast_anneal
-    from chromosome3d_tpu.solver.anneal import solve_ensemble
+    from chromosome3d.config import AnnealConfig, fast_anneal
+    from chromosome3d.solver.anneal import solve_ensemble
 
     rc = RestraintConfig()
     m = _matrix(64)
@@ -166,7 +166,7 @@ def test_batched_tiles_match_single():
     """The genome-bucket batched prep (one vmapped program) must be
     BIT-equal to per-matrix single prep at the same L_pad, including
     mixed true lengths and per-chromosome weight exponents."""
-    from chromosome3d_tpu.ops.device_prep import (
+    from chromosome3d.ops.device_prep import (
         exact_tiles_from_if_batched_device,
     )
 
@@ -189,7 +189,7 @@ def test_batched_tiles_match_single():
 def test_restraints_from_exact_target_matches_host():
     """The downloaded host view equals the host-built Restraints on the
     same matrix (exact by construction: negdev = posdev = 0)."""
-    from chromosome3d_tpu.restraints import (
+    from chromosome3d.restraints import (
         dist_to_restraints,
         if_to_dist,
         restraints_from_exact_target,
@@ -241,8 +241,8 @@ def test_solve_with_bf16_stored_tiles():
 
     import jax
 
-    from chromosome3d_tpu.config import AnnealConfig, fast_anneal
-    from chromosome3d_tpu.solver.anneal import solve_ensemble
+    from chromosome3d.config import AnnealConfig, fast_anneal
+    from chromosome3d.solver.anneal import solve_ensemble
 
     rc = RestraintConfig()
     m = _matrix(96)
@@ -326,7 +326,7 @@ def _integer_matrix(L, seed=11):
 
 
 def test_pick_strip_rows_divides():
-    from chromosome3d_tpu.ops.device_prep import _pick_strip_rows
+    from chromosome3d.ops.device_prep import _pick_strip_rows
 
     assert _pick_strip_rows(49152) == 4096
     assert _pick_strip_rows(512) == 512
@@ -336,22 +336,58 @@ def test_pick_strip_rows_divides():
         assert L_pad % _pick_strip_rows(L_pad) == 0
 
 
-def test_should_stream_prep_measured_boundary():
-    """The gate must reproduce the measured v5e boundary: L = 40960
-    one-shot bf16 prep fits, L = 49152 OOMs (DESIGN.md round-4)."""
-    from chromosome3d_tpu.ops.device_prep import should_stream_prep
+def test_should_stream_prep_measured_boundary(monkeypatch):
+    """With an explicit 16 GB budget the gate streams exactly where the
+    one-shot peak (f32 input + both output planes) exceeds it: L = 40960
+    bf16 prep (13.4 GB) runs one-shot, L = 49152 (19.3 GB) streams."""
+    from chromosome3d.ops.device_prep import should_stream_prep
 
+    monkeypatch.setenv("CHROM3D_PREP_HBM_BUDGET", "16e9")
     assert not should_stream_prep(40960, "bfloat16")
     assert should_stream_prep(49152, "bfloat16")
     assert should_stream_prep(49152, "float32")
     assert not should_stream_prep(512, "float32")
 
 
+class _Dev:
+    device_kind = "test device"
+
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("case", ["env", "memory_stats", "no_limit"])
+def test_prep_budget(case, monkeypatch):
+    """The one-shot prep budget: CHROM3D_PREP_HBM_BUDGET when set, else a
+    share of the device's bytes_limit; a device reporting no limit is an
+    explicit error, never a default size."""
+    from chromosome3d.ops.device_prep import (
+        _PREP_BUDGET_FRACTION,
+        prep_budget_bytes,
+    )
+
+    monkeypatch.delenv("CHROM3D_PREP_HBM_BUDGET", raising=False)
+    if case == "env":
+        monkeypatch.setenv("CHROM3D_PREP_HBM_BUDGET", "2.5e9")
+        assert prep_budget_bytes(_Dev(None)) == 2.5e9
+    elif case == "memory_stats":
+        dev = _Dev({"bytes_limit": 60_000_000_000})
+        assert prep_budget_bytes(dev) == _PREP_BUDGET_FRACTION * 60e9
+    else:
+        with pytest.raises(RuntimeError, match="CHROM3D_PREP_HBM_BUDGET"):
+            prep_budget_bytes(_Dev(None))
+        with pytest.raises(RuntimeError, match="no memory limit"):
+            prep_budget_bytes(_Dev({"bytes_in_use": 0}))
+
+
 def test_streamed_tiles_bit_equal_absolute():
     """Integer matrix + alpha=1 + absolute weighting: the streamed route is
     BIT-equal to the one-shot device program (shared _strip_target body,
     exactly representable mean, indicator weights — no normalizer pass)."""
-    from chromosome3d_tpu.ops.device_prep import exact_tiles_from_if_streamed
+    from chromosome3d.ops.device_prep import exact_tiles_from_if_streamed
 
     rc = RestraintConfig(alpha=1.0)
     m = _integer_matrix(100)
@@ -370,7 +406,7 @@ def test_streamed_tiles_match_relative():
     """Relative weighting: targets stay bit-equal (same mean); the weights
     differ only by the normalizer's summation order (strip partials vs one
     whole-array sum) and the scale multiply vs the elementwise divide."""
-    from chromosome3d_tpu.ops.device_prep import exact_tiles_from_if_streamed
+    from chromosome3d.ops.device_prep import exact_tiles_from_if_streamed
 
     rc = RestraintConfig(alpha=1.0)
     m = _integer_matrix(96, seed=13)
@@ -390,7 +426,7 @@ def test_streamed_tiles_bf16_stored():
     scale vs bf16(w/denom) — one extra bf16 rounding, <= ~0.8% relative)."""
     import jax.numpy as jnp
 
-    from chromosome3d_tpu.ops.device_prep import exact_tiles_from_if_streamed
+    from chromosome3d.ops.device_prep import exact_tiles_from_if_streamed
 
     rc = RestraintConfig(alpha=1.0)
     m = _integer_matrix(96, seed=17)
@@ -415,7 +451,7 @@ def test_streamed_view_matches_download(weighting):
     match downloading the one-shot f32 tiles: bit-equal targets; weights
     exact for absolute (denom == 1 -> the division is exact), to f32-sum
     resolution for relative."""
-    from chromosome3d_tpu.ops.device_prep import (
+    from chromosome3d.ops.device_prep import (
         assessment_view_from_if_streamed,
     )
 
@@ -441,7 +477,7 @@ def test_stream_gate_routes_transparently(monkeypatch):
     """With the HBM budget forced tiny, exact_tiles_from_if_device must
     dispatch onto the streamed route by itself and produce the same tiles
     (the product surfaces need no code awareness of the ceiling)."""
-    import chromosome3d_tpu.ops.device_prep as dp
+    import chromosome3d.ops.device_prep as dp
 
     rc = RestraintConfig(alpha=1.0)
     m = _integer_matrix(96, seed=29)
@@ -463,7 +499,7 @@ def test_stream_gate_routes_transparently(monkeypatch):
 
 
 def test_streamed_strip_rows_must_divide():
-    from chromosome3d_tpu.ops.device_prep import exact_tiles_from_if_streamed
+    from chromosome3d.ops.device_prep import exact_tiles_from_if_streamed
 
     rc = RestraintConfig()
     with pytest.raises(ValueError, match="divide"):
@@ -475,7 +511,7 @@ def test_streamed_strip_rows_must_divide():
 def test_streamed_tiles_lead_batch():
     """lead_batch=True emits (1, L_pad, L_pad) tiles — the genome bucket's
     batched layout — identical to the 2-D route with a batch axis on."""
-    from chromosome3d_tpu.ops.device_prep import exact_tiles_from_if_streamed
+    from chromosome3d.ops.device_prep import exact_tiles_from_if_streamed
 
     rc = RestraintConfig(alpha=1.0)
     m = _integer_matrix(100, seed=37)

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.config import AnnealConfig, RestraintConfig
-from chromosome3d_tpu.ops.energy import (
+from chromosome3d.config import AnnealConfig, RestraintConfig
+from chromosome3d.ops.energy import (
     DenseRestraints,
     EnergyWeights,
     dense_restraints_from_numpy,
@@ -16,7 +16,7 @@ from chromosome3d_tpu.ops.energy import (
     energy_terms,
     violation_stats,
 )
-from chromosome3d_tpu.restraints import build_restraints
+from chromosome3d.restraints import build_restraints
 
 
 def simple_weights(**kw):
@@ -183,7 +183,7 @@ def test_angle_term():
     import jax
     import jax.numpy as jnp
 
-    from chromosome3d_tpu.ops.energy import (
+    from chromosome3d.ops.energy import (
         DenseRestraints,
         EnergyWeights,
         energy,
@@ -223,7 +223,7 @@ def test_chunked_terms_match_dense():
     combination the final-terms pass can see: dense windowed bounds, the
     two-tensor exact form, bead-mask padding, finite rswitch, or-groups, and
     a prime L (row_chunk falls back to the full width)."""
-    from chromosome3d_tpu.ops.energy import (
+    from chromosome3d.ops.energy import (
         ExactRestraints,
         OrGroupRestraints,
         energy_terms_chunked,

@@ -1,7 +1,7 @@
 """The TWO-tensor ExactRestraints form must be a drop-in for DenseRestraints
 everywhere the exact production path runs: same energies, same gradients,
-same solves, half the uploaded/live restraint tensors. (Round-4 at-scale
-memory work: the single-chip ceiling is set by live (L, L) tensor count.)"""
+same solves, half the uploaded/live restraint tensors. (At scale the
+single-device ceiling is set by the live (L, L) tensor count.)"""
 
 import dataclasses
 
@@ -10,15 +10,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.config import AnnealConfig, RestraintConfig, fast_anneal
-from chromosome3d_tpu.ops.energy import (
+from chromosome3d.config import AnnealConfig, RestraintConfig, fast_anneal
+from chromosome3d.ops.energy import (
     EnergyWeights,
     dense_restraints_from_numpy,
     energy_terms,
     exact_restraints_from_numpy,
     violation_stats,
 )
-from chromosome3d_tpu.restraints import build_restraints
+from chromosome3d.restraints import build_restraints
 
 
 def _both_forms(matrix, weighting="relative"):
@@ -72,11 +72,14 @@ def test_energy_and_stats_equal(tiny_matrix, weighting):
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
-def test_solve_ensemble_equal(tiny_matrix, use_pallas):
+def test_solve_ensemble_equal(tiny_matrix, use_pallas, request):
     """Same key, same schedule: the two forms must produce identical
-    structures through the unfused scan AND the fused Pallas step
+    structures through the plain analytic path AND the GPU pair kernel
     (interpret mode on CPU)."""
-    from chromosome3d_tpu.solver.anneal import solve_ensemble
+    from chromosome3d.solver.anneal import solve_ensemble
+
+    if use_pallas:
+        request.getfixturevalue("interpret_kernel")
 
     r, dense, ex = _both_forms(tiny_matrix)
     cfg = dataclasses.replace(
@@ -95,16 +98,18 @@ def test_solve_ensemble_equal(tiny_matrix, use_pallas):
     )
 
 
-def test_tri_kernel_accepts_exact_form(tiny_matrix):
-    """The triangular kernel fed ExactRestraints tiles (aliases) matches the
-    dense-form call — the at-scale semi path's pair kernel."""
-    from chromosome3d_tpu.ops.pallas_energy import (
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_pair_path_accepts_exact_form(use_kernel, request):
+    """The pair terms fed ExactRestraints tiles (aliases of the stored
+    tensors) match the dense-form call, on the plain path and the GPU pair
+    kernel (interpret mode)."""
+    from chromosome3d.ops.pair import (
         exact_pair_tiles,
-        pallas_energy_grad_tri_batched,
+        pair_energy_grad_batched,
+        pair_tiles,
     )
 
     rc = RestraintConfig()
-    # L spanning >= 3 blocks at tile=128 so the round-robin pairing is real
     rng = np.random.RandomState(1)
     L = 300
     m = np.abs(rng.randn(L, L)) + 0.1
@@ -123,12 +128,11 @@ def test_tri_kernel_accepts_exact_form(tiny_matrix):
         vdw_radius=jnp.float32(3.2),
     )
     bm = jnp.ones((L,), jnp.float32)
-    ed, gd = pallas_energy_grad_tri_batched(
-        x, dense, w, bm, interpret=True, tile=128
-    )
-    ee, ge = pallas_energy_grad_tri_batched(
-        x, ex, w, bm, interpret=True, tile=128
-    )
+    if use_kernel:
+        request.getfixturevalue("interpret_kernel")
+    kw = dict(use_kernel=use_kernel)
+    ed, gd = pair_energy_grad_batched(x, pair_tiles(dense, True), bm, w, **kw)
+    ee, ge = pair_energy_grad_batched(x, pair_tiles(ex, True), bm, w, **kw)
     np.testing.assert_allclose(np.asarray(ed), np.asarray(ee), rtol=1e-6)
     np.testing.assert_allclose(np.asarray(gd), np.asarray(ge), rtol=1e-6, atol=1e-6)
 
@@ -138,7 +142,7 @@ def test_sharded_ensemble_accepts_exact_form():
     form on the CPU mesh — the at-scale sharded solve's memory-lean path."""
     from jax.sharding import Mesh
 
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
+    from chromosome3d.solver.sharded import solve_ensemble_sharded
 
     rng = np.random.RandomState(3)
     L = 16 * len(jax.devices())
@@ -165,9 +169,9 @@ def test_sharded_ensemble_accepts_exact_form():
 def test_genome_bucket_stacks_exact_form(tmp_path):
     """_stack_bucket routes pipeline-generated (exact) restraints to the
     two-tensor batched form, and solve_bucket consumes it."""
-    from chromosome3d_tpu.config import PipelineConfig
-    from chromosome3d_tpu.ops.energy import ExactRestraints
-    from chromosome3d_tpu.parallel.genome import (
+    from chromosome3d.config import PipelineConfig
+    from chromosome3d.ops.energy import ExactRestraints
+    from chromosome3d.parallel.genome import (
         GenomeJob,
         _stack_bucket,
         solve_bucket,
@@ -192,9 +196,9 @@ def test_genome_bucket_stacks_exact_form(tmp_path):
 def test_pipeline_builds_exact_form(tmp_path):
     """auto_exact + _padded_dense: the pipeline's own restraints route to
     the two-tensor form; a windowed (two-sided) set keeps the dense form."""
-    from chromosome3d_tpu.config import PipelineConfig
-    from chromosome3d_tpu.ops.energy import DenseRestraints, ExactRestraints
-    from chromosome3d_tpu.pipeline import _exact_provable, _padded_dense, auto_exact
+    from chromosome3d.config import PipelineConfig
+    from chromosome3d.ops.energy import DenseRestraints, ExactRestraints
+    from chromosome3d.pipeline import _exact_provable, _padded_dense, auto_exact
 
     rng = np.random.RandomState(2)
     m = np.abs(rng.randn(24, 24)) + 0.1

@@ -5,7 +5,7 @@ product path — not against the same IF matrix the restraints came from.
 The reference's analogue is its golden-output regression set
 (readme.txt:57-60, output_models/similarity.txt); this is the regime
 beyond its 663-bead cap where no golden data can exist, so the truth is
-synthesized (chromosome3d_tpu.truth).
+synthesized (chromosome3d.truth).
 
 Thresholds are HARD: the measured round-5 values are rmsd_over_rg ~ 0.02,
 spearman_d ~ 0.9997, drmsd_rel ~ 0.01 (10% multiplicative IF noise, turbo
@@ -21,7 +21,7 @@ import os
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.truth import (
+from chromosome3d.truth import (
     confined_walk,
     if_from_structure,
     if_from_structure_strips,
@@ -83,14 +83,14 @@ def test_metrics_resolve_mirror_and_scale():
 def test_ground_truth_reconstruction_reference_scale(tmp_path):
     """L=456 (the headline bucket) through the REAL product path: text
     matrix -> run_pipeline -> emitted rank01 PDB -> scored vs truth."""
-    from chromosome3d_tpu.config import (
+    from chromosome3d.config import (
         AnnealConfig,
         PipelineConfig,
         turbo_anneal,
     )
-    from chromosome3d_tpu.io.matrix import write_if_matrix
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.io.matrix import write_if_matrix
+    from chromosome3d.io.pdb import read_ca_pdb
+    from chromosome3d.pipeline import run_pipeline
 
     X = confined_walk(456, seed=7)
     M = if_from_structure(X, alpha=0.5, noise_sigma=0.1, seed=7)
@@ -108,13 +108,13 @@ def test_ground_truth_reconstruction_at_scale(tmp_path):
     device-prep route, the dynamic quantum bucket — the actual at-scale
     dispatch — scored vs truth. On the CPU backend this runs the same
     product code with the jnp energy path."""
-    from chromosome3d_tpu.config import (
+    from chromosome3d.config import (
         AnnealConfig,
         PipelineConfig,
         turbo_anneal,
     )
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.io.pdb import read_ca_pdb
+    from chromosome3d.pipeline import run_pipeline
 
     L = 1200
     X = confined_walk(L, seed=3)
@@ -130,7 +130,7 @@ def test_ground_truth_reconstruction_at_scale(tmp_path):
 
 
 def test_npy_input_loader(tmp_path):
-    from chromosome3d_tpu.io.matrix import load_if_matrix, matrix_length
+    from chromosome3d.io.matrix import load_if_matrix, matrix_length
 
     m = np.abs(np.random.RandomState(0).randn(64, 64)).astype(np.float32)
     m = m + m.T
@@ -150,7 +150,7 @@ def test_npy_input_loader(tmp_path):
 def test_npy_rejects_format_selectors(tmp_path):
     """--ice/--chrom/... silently ignored on a .npy input would hand back
     results from the RAW matrix (round-5 review): must fail loudly."""
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.pipeline import run_pipeline
 
     m = np.abs(np.random.RandomState(0).randn(32, 32)).astype(np.float32)
     p = str(tmp_path / "m.npy")

@@ -9,7 +9,7 @@ import zlib
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.io.hic import (
+from chromosome3d.io.hic import (
     load_any,
     load_cooler,
     load_hic,
@@ -217,8 +217,8 @@ def test_hic_error_paths(tmp_path):
 
 def test_formats_feed_the_pipeline(tmp_path):
     """A cooler matrix drives restraint generation like the text format."""
-    from chromosome3d_tpu.config import RestraintConfig
-    from chromosome3d_tpu.restraints import build_restraints
+    from chromosome3d.config import RestraintConfig
+    from chromosome3d.restraints import build_restraints
 
     m = dense_case(16, seed=4) + 1.0     # strictly positive IF
     p = str(tmp_path / "y.cool")
@@ -234,8 +234,8 @@ def test_run_pipeline_from_cooler(tmp_path):
     the {ident}.txt artifact like a native text run."""
     import os
 
-    from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
+    from chromosome3d.pipeline import run_pipeline
 
     m = dense_case(24, seed=5) + 1.0
     src = str(tmp_path / "chrT.cool")
@@ -254,7 +254,7 @@ def test_run_pipeline_from_cooler(tmp_path):
 
 
 def test_ice_balance():
-    from chromosome3d_tpu.io.hic import ice_balance
+    from chromosome3d.io.hic import ice_balance
 
     rng = np.random.RandomState(7)
     L = 40
@@ -280,9 +280,9 @@ def test_ice_balance():
 def test_run_pipeline_ice(tmp_path):
     import os
 
-    from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
-    from chromosome3d_tpu.io.matrix import load_if_matrix, write_if_matrix
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
+    from chromosome3d.io.matrix import load_if_matrix, write_if_matrix
+    from chromosome3d.pipeline import run_pipeline
 
     rng = np.random.RandomState(8)
     L = 20
@@ -503,13 +503,13 @@ def test_cooler_balance_weights(tmp_path):
 def test_run_pipeline_from_hic_v9_with_norm(tmp_path):
     """End-to-end: a juicer v9 file with a KR vector drives the pipeline
     through `run` semantics (load_any -> materialized .txt -> solve)."""
-    from chromosome3d_tpu.config import (
+    from chromosome3d.config import (
         AnnealConfig,
         PipelineConfig,
         RestraintConfig,
         fast_anneal,
     )
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.pipeline import run_pipeline
 
     rng = np.random.RandomState(12)
     m = dense_case(20, seed=12) + 1.0
@@ -528,7 +528,7 @@ def test_run_pipeline_from_hic_v9_with_norm(tmp_path):
     )
     assert summary["L"] == 20
     # the materialized matrix carries the NORMALIZED values
-    from chromosome3d_tpu.io.matrix import load_if_matrix
+    from chromosome3d.io.matrix import load_if_matrix
 
     kr32 = kr.astype(np.float32).astype(np.float64)
     want = m / kr32[:, None] / kr32[None, :]
@@ -549,7 +549,7 @@ def test_hic_float_dense_nan_sentinel(tmp_path):
     np.testing.assert_allclose(got, m)
 
     # hand-build the NaN variant through the same writer path
-    import chromosome3d_tpu.io.hic as hic
+    import chromosome3d.io.hic as hic
 
     raw = open(p, "rb").read()
     # decode, patch the one zlib block: rewrite lower-triangle 0.0 -> NaN
@@ -584,7 +584,7 @@ ASSETS = os.path.join(os.path.dirname(__file__), "assets")
 
 @pytest.mark.parametrize("version", [8, 9])
 def test_frozen_hic_fixture(version):
-    from chromosome3d_tpu.io.hic import load_hic
+    from chromosome3d.io.hic import load_hic
 
     path = os.path.join(ASSETS, f"fixture_v{version}.hic")
     exp = np.load(os.path.join(ASSETS, f"fixture_v{version}_none.npy"))
@@ -602,7 +602,7 @@ def test_frozen_hic_fixture(version):
 
 
 def test_frozen_cool_fixture():
-    from chromosome3d_tpu.io.hic import load_cooler
+    from chromosome3d.io.hic import load_cooler
 
     path = os.path.join(ASSETS, "fixture.cool")
     exp = np.load(os.path.join(ASSETS, "fixture_cool_raw.npy"))

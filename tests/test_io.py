@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.io.matrix import load_if_matrix, matrix_length, write_dist_matrix
-from chromosome3d_tpu.io.pdb import (
+from chromosome3d.io.matrix import load_if_matrix, matrix_length, write_dist_matrix
+from chromosome3d.io.pdb import (
     read_ca_pdb,
     read_pdb_remarks,
     reduce_model,
@@ -138,8 +138,8 @@ def test_native_pdb_writer_byte_parity(tmp_path, monkeypatch):
     """The C emitter (native.write_ca_pdb) must be byte-identical to the
     Python writer across remarks/connect variants; skipped when the .so is
     not built (the Python fallback is then the only path)."""
-    from chromosome3d_tpu import native
-    from chromosome3d_tpu.io import pdb as pdbio
+    from chromosome3d import native
+    from chromosome3d.io import pdb as pdbio
 
     if not native.available():
         pytest.skip("native library not built")
@@ -164,9 +164,9 @@ def test_native_text_writers_byte_parity(tmp_path, monkeypatch):
     """The native .dist/.rr/contact.tbl emitters must be byte-identical to
     the Python fallbacks (the perl-oracle tests separately pin both against
     the reference's own subs)."""
-    from chromosome3d_tpu import native
-    from chromosome3d_tpu.config import RestraintConfig
-    from chromosome3d_tpu.restraints import if_to_dist, write_contact_tbl, write_rr
+    from chromosome3d import native
+    from chromosome3d.config import RestraintConfig
+    from chromosome3d.restraints import if_to_dist, write_contact_tbl, write_rr
 
     if not native.available():
         pytest.skip("native library not built")
@@ -216,9 +216,9 @@ def test_native_tbl_declines_malformed_rr(tmp_path):
     """Malformed rr rows must make the NATIVE converter decline (so the
     Python fallback raises the same loud error with or without the .so):
     silent acceptance would emit a wrong contact.tbl."""
-    from chromosome3d_tpu import native
-    from chromosome3d_tpu.config import RestraintConfig
-    from chromosome3d_tpu.restraints import write_contact_tbl
+    from chromosome3d import native
+    from chromosome3d.config import RestraintConfig
+    from chromosome3d.restraints import write_contact_tbl
 
     if not native.available():
         pytest.skip("native library not built")
@@ -247,7 +247,7 @@ def test_hy36_roundtrip_and_pdb_at_scale(tmp_path):
     the plain %4d overflow shifting every later column."""
     import numpy as np
 
-    from chromosome3d_tpu.io.pdb import (
+    from chromosome3d.io.pdb import (
         hy36_decode,
         hy36_encode,
         read_ca_pdb,

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 from scipy import stats as sps
 
-from chromosome3d_tpu.metrics import (
+from chromosome3d.metrics import (
     clash_count,
     cross_resolution_similarity,
     kabsch_rmsd,
@@ -95,7 +95,7 @@ def test_clash_count():
 def test_reference_model_spearman_value(chr21_1mb_matrix):
     """Pin the published chr21_1mb model's score — the bar our solver must
     beat (computed from shipped artifacts, not hardcoded lore)."""
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
+    from chromosome3d.io.pdb import read_ca_pdb
 
     path = os.path.join(REF, "output_models", "chr21_1mb_rank07_a11.pdb")
     if not os.path.exists(path):
@@ -116,7 +116,7 @@ def test_reference_model_spearman_value(chr21_1mb_matrix):
 def test_cross_resolution_similarity_reproduces_published(hi, lo, pub_rho, pub_rmsd):
     """Our similarity implementation, applied to the shipped model pairs,
     must reproduce the published similarity.txt numbers."""
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
+    from chromosome3d.io.pdb import read_ca_pdb
 
     hp = os.path.join(REF, "output_models", f"{hi}.pdb")
     lp = os.path.join(REF, "output_models", f"{lo}.pdb")
@@ -128,7 +128,7 @@ def test_cross_resolution_similarity_reproduces_published(hi, lo, pub_rho, pub_r
 
 
 def test_drmsd_scale_fit():
-    from chromosome3d_tpu.metrics import drmsd
+    from chromosome3d.metrics import drmsd
 
     rng = np.random.RandomState(7)
     a = rng.randn(20, 3) * 5

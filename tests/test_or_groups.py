@@ -12,8 +12,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from chromosome3d_tpu.config import AnnealConfig
-from chromosome3d_tpu.ops.energy import (
+from chromosome3d.config import AnnealConfig
+from chromosome3d.ops.energy import (
     EnergyWeights,
     OrGroupRestraints,
     dense_or_groups_from_numpy,
@@ -21,7 +21,7 @@ from chromosome3d_tpu.ops.energy import (
     energy,
     or_group_energy,
 )
-from chromosome3d_tpu.restraints import (
+from chromosome3d.restraints import (
     Restraints,
     read_contact_tbl,
     read_contact_tbl_full,
@@ -147,7 +147,7 @@ def test_energy_includes_group_term():
 def test_solver_satisfies_group_restraint():
     """A chain with one ambiguous restraint: the anneal pulls the CLOSEST
     alternative into the well and leaves the other free."""
-    from chromosome3d_tpu.solver.anneal import solve_ensemble_impl
+    from chromosome3d.solver.anneal import solve_ensemble_impl
 
     L = 14
     # chain-neighbor targets keep the backbone sane
@@ -181,8 +181,8 @@ def test_solver_satisfies_group_restraint():
 
 def test_restraints_pipeline_with_group_tbl(tmp_path):
     """End-to-end: solve directly from a tbl containing or-group rows."""
-    from chromosome3d_tpu.config import PipelineConfig
-    from chromosome3d_tpu.pipeline import run_restraints_pipeline
+    from chromosome3d.config import PipelineConfig
+    from chromosome3d.pipeline import run_restraints_pipeline
 
     L = 12
     lines = []
@@ -216,10 +216,11 @@ def test_restraints_pipeline_with_group_tbl(tmp_path):
 
 
 def test_group_term_composes_with_pallas_kernel():
-    """The annealer's pallas+or-group composition — kernel pair energy+grad
+    """The annealer's kernel+or-group composition — kernel pair energy+grad
     plus the jnp group term's value_and_grad — must equal the jnp energy path
     with or_groups (same batch, interpret-mode kernel on CPU)."""
-    from chromosome3d_tpu.ops.pallas_energy import pallas_energy_and_grad_batched
+    import chromosome3d.ops.pair as pair_mod
+    from chromosome3d.ops.pair import pair_tiles
 
     L = 16
     rng = np.random.RandomState(3)
@@ -248,9 +249,13 @@ def test_group_term_composes_with_pallas_kernel():
     xb = jnp.asarray(rng.normal(0, 4, (3, L, 3)), jnp.float32)
     bead = jnp.ones((L,), jnp.float32)
 
-    e_pair, g_pair = pallas_energy_and_grad_batched(
-        xb, dense, w, bead, interpret=True, exact=True
+    e_pair, g_pair = pair_mod.pair_energy_grad_batched(
+        xb, pair_tiles(dense, True), bead, w, 0, True, True
     )
+    bond_vg = jax.vmap(jax.value_and_grad(pair_mod.bonded_energy),
+                       in_axes=(0, None, None))
+    e_b, g_b = bond_vg(xb, bead, w)
+    e_pair, g_pair = e_pair + e_b, g_pair + g_b
     _og_vg = jax.value_and_grad(or_group_energy)
     e_og, g_og = jax.vmap(lambda c: _og_vg(c, og, w, bead))(xb)
     e_pal, g_pal = e_pair + e_og, g_pair + g_og
@@ -277,8 +282,8 @@ def test_dense_or_groups_roundtrip(tmp_path):
 def test_violation_report_includes_group_rows(tmp_path):
     """The violation report covers EVERY tbl row: simple rows from the dense
     writer plus appended group-min rows (ref :447-485, :487-554)."""
-    from chromosome3d_tpu.config import PipelineConfig
-    from chromosome3d_tpu.pipeline import run_restraints_pipeline
+    from chromosome3d.config import PipelineConfig
+    from chromosome3d.pipeline import run_restraints_pipeline
 
     L = 12
     lines = [
@@ -362,8 +367,8 @@ def test_tbl_report_counts_every_row(tmp_path):
     """Per-TBL-ROW assessment like the reference: duplicate rows and
     reversed (j, i) rows each count individually (count_satisfied_tbl_rows
     iterates the file, ref :447-485)."""
-    from chromosome3d_tpu.config import PipelineConfig
-    from chromosome3d_tpu.assess import write_tbl_violation_report
+    from chromosome3d.config import PipelineConfig
+    from chromosome3d.assess import write_tbl_violation_report
 
     tbl = tmp_path / "dup.tbl"
     tbl.write_text(
@@ -387,7 +392,7 @@ def test_tbl_report_counts_every_row(tmp_path):
 def test_parenless_truncated_tail_skipped(tmp_path):
     """A paren-less row with a truncated numeric tail is skipped — resid
     numbers must not leak into d/neg/pos (review finding)."""
-    from chromosome3d_tpu.assess import parse_tbl_rows
+    from chromosome3d.assess import parse_tbl_rows
 
     p = tmp_path / "trunc.tbl"
     p.write_text(
@@ -407,9 +412,9 @@ def test_sharded_ensemble_with_groups_matches_single_chip():
 
     from jax.sharding import Mesh
 
-    from chromosome3d_tpu.config import fast_anneal
-    from chromosome3d_tpu.solver.anneal import solve_ensemble_impl
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
+    from chromosome3d.config import fast_anneal
+    from chromosome3d.solver.anneal import solve_ensemble_impl
+    from chromosome3d.solver.sharded import solve_ensemble_sharded
 
     n_dev = len(jax.devices())
     L = 16 * n_dev
@@ -456,14 +461,13 @@ def test_sharded_ensemble_with_groups_matches_single_chip():
     )
 
 
-def test_semi_fused_og_matches_unfused_zero_noise(monkeypatch):
-    """The semi-fused path now carries or-groups: with zero noise it must
-    track the unfused or-group solve trajectory."""
+def test_semi_fused_og_matches_unfused_zero_noise(interpret_kernel):
+    """The kernel path carries or-groups beside the pair kernel: with zero
+    noise it must track the plain-path or-group solve trajectory."""
     import dataclasses
 
-    import chromosome3d_tpu.ops.pallas_energy as pe
-    from chromosome3d_tpu.config import fast_anneal
-    from chromosome3d_tpu.solver.anneal import solve_ensemble_impl
+    from chromosome3d.config import fast_anneal
+    from chromosome3d.solver.anneal import solve_ensemble_impl
 
     L = 44
     t = np.zeros((L, L), np.float32)
@@ -490,16 +494,12 @@ def test_semi_fused_og_matches_unfused_zero_noise(monkeypatch):
     )
     base = fast_anneal(AnnealConfig(), 0.1)
     cfg_semi = dataclasses.replace(
-        base, use_pallas=True, exact_restraints=True, fuse_update=True,
+        base, use_pallas=True, exact_restraints=True,
         noise_scale=0.0, init="spiral", enantiomer=False,
     )
     cfg_ref = dataclasses.replace(cfg_semi, use_pallas=False)
     key = jax.random.PRNGKey(5)
-    monkeypatch.setattr(
-        pe, "use_triangular", lambda L, for_unfused=False, batch=None: True
-    )
     res_semi = solve_ensemble_impl(dense, cfg_semi, key, 2, or_groups=og)
-    monkeypatch.undo()
     res_ref = solve_ensemble_impl(dense, cfg_ref, key, 2, or_groups=og)
     np.testing.assert_allclose(
         np.asarray(res_semi.coords), np.asarray(res_ref.coords),

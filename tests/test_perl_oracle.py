@@ -15,9 +15,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.config import RestraintConfig
-from chromosome3d_tpu.io.matrix import load_if_matrix, write_dist_matrix
-from chromosome3d_tpu.restraints import (
+from chromosome3d.config import RestraintConfig
+from chromosome3d.io.matrix import load_if_matrix, write_dist_matrix
+from chromosome3d.restraints import (
     dist_to_restraints,
     if_to_dist,
     write_contact_tbl,

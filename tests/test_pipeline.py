@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
+from chromosome3d.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
 
 REF_INPUT = "/root/reference/input"
 
@@ -24,7 +24,7 @@ def fast_cfg(**kw):
 
 @pytest.fixture(scope="module")
 def pipeline_out(tmp_path_factory):
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.pipeline import run_pipeline
 
     src = os.path.join(REF_INPUT, "chr22_1mb_matrix.txt")
     if not os.path.exists(src):
@@ -65,7 +65,7 @@ def test_pipeline_summary_sane(pipeline_out):
 
 
 def test_pipeline_models_readable(pipeline_out):
-    from chromosome3d_tpu.io.pdb import read_ca_pdb, read_pdb_remarks
+    from chromosome3d.io.pdb import read_ca_pdb, read_pdb_remarks
 
     out, _ = pipeline_out
     coords = read_ca_pdb(os.path.join(out, "chr22_1mb_matrix_model1.pdb"))
@@ -92,7 +92,7 @@ def test_pipeline_spearman_ranking(pipeline_out):
 def test_violation_report_per_model(pipeline_out):
     """One appended report per model (ref assess_dgsa assesses EVERY pdb,
     chromosome3D.pl:804-810), each in the count_satisfied_tbl_rows format."""
-    from chromosome3d_tpu.io.pdb import read_pdb_remarks
+    from chromosome3d.io.pdb import read_pdb_remarks
 
     out, summary = pipeline_out
     text = open(os.path.join(out, "contact_violation.txt")).read()
@@ -114,10 +114,9 @@ def test_violation_report_per_model(pipeline_out):
 
 def test_bucketed_single_runs_share_one_program(tmp_path):
     """Different-L `run` invocations pad to one bucket and reuse ONE compiled
-    solve program (each distinct L otherwise costs a fresh multi-minute
-    remote compile on the production TPU platform)."""
-    from chromosome3d_tpu.pipeline import run_pipeline
-    from chromosome3d_tpu.solver.anneal import solve_ensemble
+    solve program (each distinct L otherwise costs a fresh compile)."""
+    from chromosome3d.pipeline import run_pipeline
+    from chromosome3d.solver.anneal import solve_ensemble
 
     for name in ("chr22_1mb_matrix.txt", "chr21_1mb_matrix.txt"):
         if not os.path.exists(os.path.join(REF_INPUT, name)):
@@ -134,7 +133,7 @@ def test_bucketed_single_runs_share_one_program(tmp_path):
     assert solve_ensemble._cache_size() == 1
     assert s22["L"] == 35 and s21["L"] == 37
     # artifacts come out at the TRUE length
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
+    from chromosome3d.io.pdb import read_ca_pdb
 
     assert read_ca_pdb(tmp_path / "c21" / "chr21_1mb_matrix_model1.pdb").shape == (37, 3)
 
@@ -156,7 +155,7 @@ def test_genome_runner_multi_device(tmp_path):
     """Two chromosomes bucketed + sharded over the 8 fake CPU devices."""
     import jax
 
-    from chromosome3d_tpu.parallel.genome import GenomeJob, run_genome
+    from chromosome3d.parallel.genome import GenomeJob, run_genome
 
     if not os.path.exists(REF_INPUT):
         pytest.skip("reference not available")
@@ -173,7 +172,7 @@ def test_genome_runner_multi_device(tmp_path):
         assert os.path.exists(os.path.join(out, name, f"{name}_model1.pdb"))
         assert -1.0 <= s["best_spearman_if_inv_d"] <= 1.0
     # round-5: the run writes a top-level summary.json with per-bucket
-    # PHASE wall breakdowns (tunnel-spread attribution, VERDICT item 7)
+    # PHASE wall breakdowns (which phase moved between runs)
     with open(os.path.join(out, "summary.json")) as f:
         top = json.load(f)
     assert set(top["chromosomes"]) == {"chr22_1mb", "chr21_1mb"}
@@ -190,12 +189,12 @@ def test_bucket_padding_quality_equivalence(tmp_path):
     import jax
     import numpy as np
 
-    from chromosome3d_tpu.io.matrix import load_if_matrix
-    from chromosome3d_tpu.metrics import spearman_if_inv_d
-    from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-    from chromosome3d_tpu.parallel.genome import GenomeJob, _stack_bucket, make_mesh, solve_bucket
-    from chromosome3d_tpu.restraints import build_restraints
-    from chromosome3d_tpu.solver.anneal import solve_ensemble
+    from chromosome3d.io.matrix import load_if_matrix
+    from chromosome3d.metrics import spearman_if_inv_d
+    from chromosome3d.ops.energy import dense_restraints_from_numpy
+    from chromosome3d.parallel.genome import GenomeJob, _stack_bucket, make_mesh, solve_bucket
+    from chromosome3d.restraints import build_restraints
+    from chromosome3d.solver.anneal import solve_ensemble
 
     if not os.path.exists(REF_INPUT):
         pytest.skip("reference not available")
@@ -218,7 +217,7 @@ def test_bucket_padding_quality_equivalence(tmp_path):
 
 def test_genome_resume_skips_finished(tmp_path):
     """run_genome(resume=True) must not re-solve checkpointed chromosomes."""
-    from chromosome3d_tpu.parallel.genome import GenomeJob, run_genome
+    from chromosome3d.parallel.genome import GenomeJob, run_genome
 
     if not os.path.exists(REF_INPUT):
         pytest.skip("reference not available")
@@ -254,7 +253,7 @@ def test_genome_resume_skips_finished(tmp_path):
 
 
 def test_turbo_preset():
-    from chromosome3d_tpu.config import AnnealConfig, turbo_anneal
+    from chromosome3d.config import AnnealConfig, turbo_anneal
 
     cfg = turbo_anneal(AnnealConfig())
     assert cfg.total_steps == 30 + 8 * 12 + 150
@@ -265,8 +264,8 @@ def test_genome_sharded_matches_single_device(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from chromosome3d_tpu.io.matrix import load_if_matrix
-    from chromosome3d_tpu.parallel.genome import GenomeJob, _stack_bucket, make_mesh, solve_bucket
+    from chromosome3d.io.matrix import load_if_matrix
+    from chromosome3d.parallel.genome import GenomeJob, _stack_bucket, make_mesh, solve_bucket
 
     if not os.path.exists(REF_INPUT):
         pytest.skip("reference not available")
@@ -288,7 +287,7 @@ def test_genome_sharded_matches_single_device(tmp_path):
     e_m = np.asarray(multi.energies["overall"])
     e_s = np.asarray(single.energies["overall"])
     np.testing.assert_allclose(np.sort(e_m, -1), np.sort(e_s, -1), rtol=0.15)
-    from chromosome3d_tpu.metrics import spearman_if_inv_d
+    from chromosome3d.metrics import spearman_if_inv_d
 
     m22 = load_if_matrix(os.path.join(REF_INPUT, "chr22_1mb_matrix.txt"))
     s_m = spearman_if_inv_d(m22, np.asarray(multi.coords)[0, 0, :35])
@@ -305,11 +304,11 @@ def test_dp_sharded_anneal_trajectory_equal(tmp_path):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from chromosome3d_tpu.io.matrix import load_if_matrix
-    from chromosome3d_tpu.ops.energy import DenseRestraints
-    from chromosome3d_tpu.parallel.genome import GenomeJob, _stack_bucket, make_mesh
-    from chromosome3d_tpu.solver.anneal import solve_ensemble_impl
-    from chromosome3d_tpu.solver.init import spiral_init
+    from chromosome3d.io.matrix import load_if_matrix
+    from chromosome3d.ops.energy import DenseRestraints
+    from chromosome3d.parallel.genome import GenomeJob, _stack_bucket, make_mesh
+    from chromosome3d.solver.anneal import solve_ensemble_impl
+    from chromosome3d.solver.init import spiral_init
 
     if not os.path.exists(REF_INPUT):
         pytest.skip("reference not available")
@@ -354,7 +353,7 @@ def test_pipeline_zero_restraints(tmp_path):
     np.fill_diagonal(m, 100.0)
     src = tmp_path / "tiny_matrix.txt"
     src.write_text("\n".join(" ".join(f"{v:.1f}" for v in row) for row in m) + "\n")
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.pipeline import run_pipeline
 
     summary = run_pipeline(str(src), str(tmp_path / "out"), fast_cfg(model_count=2))
     assert summary["restraints"] == 0
@@ -367,7 +366,7 @@ def test_pipeline_failure_sentinel(tmp_path):
     src = os.path.join(REF_INPUT, "chr22_1mb_matrix.txt")
     if not os.path.exists(src):
         pytest.skip("reference not available")
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.pipeline import run_pipeline
 
     bad = PipelineConfig(
         model_count=2,
@@ -380,7 +379,7 @@ def test_pipeline_failure_sentinel(tmp_path):
 
 
 def test_model_axis_shards_layout():
-    from chromosome3d_tpu.parallel.genome import model_axis_shards
+    from chromosome3d.parallel.genome import model_axis_shards
 
     # chips outnumber chromosomes: split the restart budget
     assert model_axis_shards(2, 8, 20) == 4    # 2*4=8 devices, 5 models each
@@ -397,9 +396,9 @@ def test_solve_bucket_2d_model_axis(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from chromosome3d_tpu.ops.energy import DenseRestraints, dense_restraints_from_numpy
-    from chromosome3d_tpu.parallel.genome import make_mesh, solve_bucket
-    from chromosome3d_tpu.restraints import build_restraints
+    from chromosome3d.ops.energy import DenseRestraints, dense_restraints_from_numpy
+    from chromosome3d.parallel.genome import make_mesh, solve_bucket
+    from chromosome3d.restraints import build_restraints
 
     rng = np.random.RandomState(0)
     L = 64
@@ -424,7 +423,7 @@ def test_assess_failed_sentinel(tmp_path, tiny_matrix, monkeypatch):
     """A restraint-count mismatch must leave an `assess.failed` sentinel for
     monitoring parity with the reference's acceptance check
     (chromosome3D.pl:785-787), in addition to raising."""
-    import chromosome3d_tpu.pipeline as pl
+    import chromosome3d.pipeline as pl
 
     src = tmp_path / "tiny_matrix.txt"
     np.savetxt(src, tiny_matrix, fmt="%.3f")
@@ -443,7 +442,7 @@ def test_no_violation_reports_knob(tmp_path, tiny_matrix):
     O(L^2) report files (1862 s at L=24576 x 2 models on this host) while
     keeping the stats, rankings, and model artifacts — the at-scale run
     knob (--no-violation-reports)."""
-    from chromosome3d_tpu.pipeline import run_pipeline
+    from chromosome3d.pipeline import run_pipeline
 
     src = tmp_path / "tiny_matrix.txt"
     np.savetxt(src, tiny_matrix, fmt="%.3f")

@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.config import RestraintConfig
-from chromosome3d_tpu.restraints import (
+from chromosome3d.config import RestraintConfig
+from chromosome3d.restraints import (
     build_restraints,
     dist_to_restraints,
     if_to_dist,
@@ -128,7 +128,7 @@ def test_golden_chr21(chr21_1mb_matrix):
 def test_kscaling_spearman_invariance(tiny_matrix):
     """K scales all targets uniformly, so the Spearman objective (and the
     relative-weighted energy landscape up to scale) is K-invariant."""
-    from chromosome3d_tpu.config import RestraintConfig
+    from chromosome3d.config import RestraintConfig
 
     a = if_to_dist(tiny_matrix, RestraintConfig(kscaling=11.0))
     b = if_to_dist(tiny_matrix, RestraintConfig(kscaling=44.0))

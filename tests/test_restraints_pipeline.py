@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
-from chromosome3d_tpu.restraints import read_rr
+from chromosome3d.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
+from chromosome3d.restraints import read_rr
 
 
 def make_rr(tmp_path, rows):
@@ -38,7 +38,7 @@ def test_read_rr_zero_lo_special_case(tmp_path):
 
 def test_solve_from_rr(tmp_path):
     """Restraints describing a straight chain should reconstruct one."""
-    from chromosome3d_tpu.pipeline import run_restraints_pipeline
+    from chromosome3d.pipeline import run_restraints_pipeline
 
     L = 12
     rows = []
@@ -52,7 +52,7 @@ def test_solve_from_rr(tmp_path):
     summary = run_restraints_pipeline(p, out, cfg)
     assert summary["L"] == L
     assert summary["restraints"] == L * (L - 1) // 2
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
+    from chromosome3d.io.pdb import read_ca_pdb
 
     coords = read_ca_pdb(os.path.join(out, "test_model1.pdb"))
     d = np.linalg.norm(coords[:, None] - coords[None, :], axis=-1)
@@ -65,8 +65,8 @@ def test_solve_from_rr(tmp_path):
 
 
 def test_solve_from_tbl(tmp_path):
-    from chromosome3d_tpu.pipeline import run_restraints_pipeline
-    from chromosome3d_tpu.restraints import write_contact_tbl
+    from chromosome3d.pipeline import run_restraints_pipeline
+    from chromosome3d.restraints import write_contact_tbl
 
     rr = make_rr(
         tmp_path, [f"1 {j} {3.0*(j-1):.2f} {3.0*(j-1):.2f} 1.0" for j in range(7, 12)]

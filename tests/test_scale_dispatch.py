@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.config import (
+from chromosome3d.config import (
     AnnealConfig,
     PipelineConfig,
     RestraintConfig,
@@ -45,7 +45,7 @@ def structured_matrix(L: int, seed: int = 0) -> np.ndarray:
 
 
 def test_bucket_pad_dynamic_quantum():
-    from chromosome3d_tpu.pipeline import _bucket_pad
+    from chromosome3d.pipeline import _bucket_pad
 
     cfg = scale_cfg()
     L_pad, bm = _bucket_pad(70, cfg)
@@ -56,7 +56,7 @@ def test_bucket_pad_dynamic_quantum():
 
 
 def test_bucket_jobs_quantum_and_raise(tmp_path):
-    from chromosome3d_tpu.parallel.genome import GenomeJob, bucket_jobs
+    from chromosome3d.parallel.genome import GenomeJob, bucket_jobs
 
     p = tmp_path / "chrX_1mb_matrix.txt"
     np.savetxt(p, structured_matrix(70), fmt="%.2f")
@@ -69,7 +69,7 @@ def test_bucket_jobs_quantum_and_raise(tmp_path):
 
 
 def test_large_mesh_layout():
-    from chromosome3d_tpu.parallel.genome import large_mesh_layout
+    from chromosome3d.parallel.genome import large_mesh_layout
 
     assert large_mesh_layout(1, 8) == (1, 8)
     assert large_mesh_layout(3, 8) == (2, 4)
@@ -81,7 +81,7 @@ def test_run_pipeline_dispatches_sharded(tmp_path, monkeypatch):
     """An L=96 input with a 32-bucket config must route through
     _sharded_solve over the 8-device mesh and still produce the full
     artifact set with real reconstruction quality."""
-    import chromosome3d_tpu.pipeline as pl
+    import chromosome3d.pipeline as pl
 
     calls = []
     real = pl._sharded_solve
@@ -99,7 +99,7 @@ def test_run_pipeline_dispatches_sharded(tmp_path, monkeypatch):
     assert summary["L"] == 96 and summary["models"] == 2
     # a structured matrix must reconstruct well even on the tiny schedule
     assert summary["best_spearman_if_inv_d"] > 0.7
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
+    from chromosome3d.io.pdb import read_ca_pdb
 
     coords = read_ca_pdb(os.path.join(out, "big_matrix_model1.pdb"))
     assert coords.shape == (96, 3)
@@ -107,7 +107,7 @@ def test_run_pipeline_dispatches_sharded(tmp_path, monkeypatch):
 
 
 def test_run_pipeline_shard_large_off_keeps_plain_path(tmp_path, monkeypatch):
-    import chromosome3d_tpu.pipeline as pl
+    import chromosome3d.pipeline as pl
 
     monkeypatch.setattr(
         pl, "_sharded_solve",
@@ -126,7 +126,7 @@ def test_run_genome_mixed_scale(tmp_path, monkeypatch):
     chromosome must complete in one launch: the small one through
     solve_bucket, the large one through the 2-D chrom x beads sharded
     solver."""
-    import chromosome3d_tpu.parallel.genome as gn
+    import chromosome3d.parallel.genome as gn
 
     small = structured_matrix(24, seed=1)
     large = structured_matrix(96, seed=2)
@@ -171,12 +171,12 @@ def test_genome_sharded_matches_plain_bucket(tmp_path):
     programs over the same protocol: on the same input they must deliver
     comparable quality (not identical trajectories — init and RNG
     assignment differ by design)."""
-    from chromosome3d_tpu.parallel.genome import (
+    from chromosome3d.parallel.genome import (
         solve_bucket,
         solve_bucket_sharded,
     )
-    from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-    from chromosome3d_tpu.restraints import build_restraints
+    from chromosome3d.ops.energy import dense_restraints_from_numpy
+    from chromosome3d.restraints import build_restraints
     import jax.numpy as jnp
 
     cfg = scale_cfg()
@@ -190,7 +190,7 @@ def test_genome_sharded_matches_plain_bucket(tmp_path):
     res_sharded = solve_bucket_sharded(batched, masks, cfg)
     assert res_sharded.coords.shape == (1, 2, 96, 3)
     assert bool(jnp.isfinite(res_sharded.coords).all())
-    from chromosome3d_tpu.metrics import spearman_if_inv_d
+    from chromosome3d.metrics import spearman_if_inv_d
 
     scores = [
         spearman_if_inv_d(m, np.asarray(res_sharded.coords[0, i]))
@@ -202,7 +202,7 @@ def test_genome_sharded_matches_plain_bucket(tmp_path):
 def test_run_genome_resume_with_large_bucket(tmp_path):
     """Checkpoint/resume must cover at-scale (sharded) buckets: a second
     run with resume=True returns every summary without re-solving."""
-    import chromosome3d_tpu.parallel.genome as gn
+    import chromosome3d.parallel.genome as gn
 
     indir = tmp_path / "input"
     indir.mkdir()
@@ -234,10 +234,10 @@ def test_sharded_solve_program_memoized(tmp_path, monkeypatch):
     compiled program (a long-lived server must not retrace per request)."""
     import jax
 
-    import chromosome3d_tpu.pipeline as pl
+    import chromosome3d.pipeline as pl
 
     builds = []
-    import chromosome3d_tpu.utils.aot as aot
+    import chromosome3d.utils.aot as aot
 
     real = aot.load_or_compile
 
@@ -251,7 +251,7 @@ def test_sharded_solve_program_memoized(tmp_path, monkeypatch):
     pl._SHARDED_PROGRAMS.clear()
 
     cfg = scale_cfg()
-    from chromosome3d_tpu.restraints import build_restraints
+    from chromosome3d.restraints import build_restraints
 
     m = structured_matrix(96, seed=9)
     r = build_restraints(m, cfg.restraints)
@@ -268,7 +268,7 @@ def test_restraints_pipeline_or_groups_dispatch_sharded(tmp_path, monkeypatch):
     """Round-4 item: an at-scale external tbl WITH or-group rows (and a
     beyond-bucket L) must keep the row-sharded path, not silently fall back
     to the single-program padded solve."""
-    import chromosome3d_tpu.pipeline as pl
+    import chromosome3d.pipeline as pl
 
     L = 48
     lines = [
@@ -306,8 +306,8 @@ def test_restraints_pipeline_never_device_preps(tmp_path, monkeypatch):
     device prep recovers the restraint mask as target > 0, and an external
     exact row with target 0 (legal in a CNS tbl) would silently vanish.
     run_restraints_pipeline therefore never passes device_prep=True."""
-    import chromosome3d_tpu.ops.device_prep as dp
-    import chromosome3d_tpu.pipeline as pl
+    import chromosome3d.ops.device_prep as dp
+    import chromosome3d.pipeline as pl
 
     L = 48
     lines = [
@@ -337,7 +337,7 @@ def test_restraints_pipeline_never_device_preps(tmp_path, monkeypatch):
 def test_restraints_pipeline_conf_rr_dispatch_sharded(tmp_path, monkeypatch):
     """An at-scale .rr with non-unit confidences keeps the sharded path;
     conf folds into the stress weights."""
-    import chromosome3d_tpu.pipeline as pl
+    import chromosome3d.pipeline as pl
 
     L = 48
     rows = [f"{i} {i + 1} 3.80 3.80 0.9\n" for i in range(1, L)]
@@ -369,10 +369,10 @@ def test_at_scale_bucket_tiles_born_distributed(monkeypatch):
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    import chromosome3d_tpu.parallel.genome as gn
-    import chromosome3d_tpu.utils.aot as aot
-    from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-    from chromosome3d_tpu.restraints import build_restraints
+    import chromosome3d.parallel.genome as gn
+    import chromosome3d.utils.aot as aot
+    from chromosome3d.ops.energy import dense_restraints_from_numpy
+    from chromosome3d.restraints import build_restraints
 
     cfg = scale_cfg()
     m = structured_matrix(96, seed=7)
@@ -422,8 +422,8 @@ def test_run_pipeline_at_scale_device_route(tmp_path, monkeypatch):
     dist_to_restraints / build_restraints all forbidden), the O(L^2) text
     artifacts are suppressed, and the assessment views are the downloaded
     device tiles — bit-equal to the host route."""
-    import chromosome3d_tpu.pipeline as pl
-    import chromosome3d_tpu.restraints as rst
+    import chromosome3d.pipeline as pl
+    import chromosome3d.restraints as rst
 
     m = structured_matrix(96, seed=11)
     cfg = scale_cfg()
@@ -459,9 +459,9 @@ def test_run_pipeline_at_scale_device_route_single_device(tmp_path, monkeypatch)
     """Same contract when only one device is available (the plain padded
     solver at the quantum bucket): device prep straight from the IF
     matrix, host views downloaded."""
-    import chromosome3d_tpu.ops.device_prep as dp
-    import chromosome3d_tpu.pipeline as pl
-    import chromosome3d_tpu.restraints as rst
+    import chromosome3d.ops.device_prep as dp
+    import chromosome3d.pipeline as pl
+    import chromosome3d.restraints as rst
 
     m = structured_matrix(72, seed=12)
     cfg = scale_cfg()
@@ -502,8 +502,8 @@ def test_run_pipeline_sharded_bf16_stored(tmp_path, monkeypatch):
 
     import jax.numpy as jnp
 
-    import chromosome3d_tpu.ops.device_prep as dp
-    import chromosome3d_tpu.pipeline as pl
+    import chromosome3d.ops.device_prep as dp
+    import chromosome3d.pipeline as pl
 
     seen = []
     real = dp.exact_tiles_from_if_device
@@ -537,7 +537,7 @@ def test_run_genome_at_scale_bf16_stored(tmp_path, monkeypatch):
 
     import jax.numpy as jnp
 
-    import chromosome3d_tpu.parallel.genome as gn
+    import chromosome3d.parallel.genome as gn
 
     seen = []
     real = gn.bucket_tiles_from_if
@@ -573,14 +573,13 @@ def test_run_genome_at_scale_bf16_stored(tmp_path, monkeypatch):
 
 def test_run_genome_at_scale_single_device(tmp_path, monkeypatch):
     """On ONE device an at-scale exact bucket still takes the IF->device
-    prep route (never per-chromosome host build_restraints — 313 s at
-    L=8192 on this host) through the (1, 1)-mesh degenerate of the
-    composed solver, which runs at single-chip per-step cost (DESIGN.md
-    chip check)."""
+    prep route (never per-chromosome host build_restraints, minutes at L
+    in the thousands) through the (1, 1)-mesh degenerate of the composed
+    solver, which runs the same per-shard pair code."""
     import jax
     from jax.sharding import Mesh
 
-    import chromosome3d_tpu.parallel.genome as gn
+    import chromosome3d.parallel.genome as gn
 
     indir = tmp_path / "input"
     indir.mkdir()
@@ -605,8 +604,8 @@ def test_run_pipeline_at_scale_streamed_prep(tmp_path, monkeypatch):
     matrix run must stream BOTH the solve tiles and the f32 assessment view
     (strip programs, no one-shot (L, L) prep) and still reconstruct — the
     product surface needs no awareness of the one-shot ceiling."""
-    import chromosome3d_tpu.ops.device_prep as dp
-    import chromosome3d_tpu.pipeline as pl
+    import chromosome3d.ops.device_prep as dp
+    import chromosome3d.pipeline as pl
 
     monkeypatch.setenv("CHROM3D_PREP_HBM_BUDGET", "1000")
     monkeypatch.setattr(pl, "_use_sharded", lambda L, c: False)
@@ -645,8 +644,8 @@ def test_run_genome_at_scale_streamed_single_device(tmp_path, monkeypatch):
 
     import jax
 
-    import chromosome3d_tpu.ops.device_prep as dp
-    import chromosome3d_tpu.parallel.genome as gn
+    import chromosome3d.ops.device_prep as dp
+    import chromosome3d.parallel.genome as gn
 
     monkeypatch.setenv("CHROM3D_PREP_HBM_BUDGET", "1000")
     tile_calls, view_calls = [], []

@@ -9,8 +9,8 @@ import time
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
-from chromosome3d_tpu.serve import request, serve
+from chromosome3d.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
+from chromosome3d.serve import request, serve
 
 REF_INPUT = "/root/reference/input"
 
@@ -125,7 +125,7 @@ def test_ping_during_slow_solve(server, tmp_path):
     busy >= 1 (round-3 hardening; the old single-threaded server blocked)."""
     import numpy as np
 
-    import chromosome3d_tpu.serve as srv
+    import chromosome3d.serve as srv
 
     # make the solve observably slow without burning CPU
     real = srv.SolverCache.solve
@@ -207,7 +207,7 @@ def test_restraint_file_oversized_L_rejected(server, tmp_path):
     with ok=false BEFORE any tensors are allocated or a solve is queued
     (round-3 finding: the validator only saw an explicit "L" field; a file
     whose length is INFERRED from its max resid walked past the cap)."""
-    import chromosome3d_tpu.serve as srv
+    import chromosome3d.serve as srv
 
     big = srv.MAX_L + 1000
     tbl = tmp_path / "huge.tbl"
@@ -241,10 +241,10 @@ def test_beyond_bucket_single_device_uses_device_prep(tmp_path, monkeypatch):
     post-solve download (late round 4)."""
     import numpy as np
 
-    import chromosome3d_tpu.ops.device_prep as dp
-    import chromosome3d_tpu.pipeline as pl
-    import chromosome3d_tpu.restraints as rst
-    from chromosome3d_tpu.serve import SolverCache
+    import chromosome3d.ops.device_prep as dp
+    import chromosome3d.pipeline as pl
+    import chromosome3d.restraints as rst
+    from chromosome3d.serve import SolverCache
 
     cfg = PipelineConfig(
         model_count=2,
@@ -296,7 +296,7 @@ def test_beyond_bucket_single_device_uses_device_prep(tmp_path, monkeypatch):
 def test_queue_depth_cap():
     """Requests beyond MAX_QUEUE in-flight solves are rejected immediately
     (no thread needed: preload the busy counter and call the handler)."""
-    from chromosome3d_tpu.serve import MAX_QUEUE, SolverCache, handle_request
+    from chromosome3d.serve import MAX_QUEUE, SolverCache, handle_request
 
     cache = SolverCache(PipelineConfig(model_count=2))
     cache.busy = MAX_QUEUE
@@ -325,7 +325,7 @@ def test_matrix_request_keeps_operator_restraint_config(tmp_path, monkeypatch):
     then overwrote exactly the two it touched)."""
     import dataclasses
 
-    from chromosome3d_tpu.serve import SolverCache, handle_request
+    from chromosome3d.serve import SolverCache, handle_request
 
     base = PipelineConfig(
         model_count=2,

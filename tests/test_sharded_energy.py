@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from chromosome3d_tpu.config import AnnealConfig
-from chromosome3d_tpu.ops.energy import energy, weights_from_config
-from chromosome3d_tpu.parallel.sharded_energy import make_sharded_energy_grad
+from chromosome3d.config import AnnealConfig
+from chromosome3d.ops.energy import energy, weights_from_config
+from chromosome3d.parallel.sharded_energy import make_sharded_energy_grad
 from tests.test_pallas_energy import make_case
 
 

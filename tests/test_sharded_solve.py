@@ -7,12 +7,12 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from chromosome3d_tpu.config import AnnealConfig, RestraintConfig, fast_anneal
-from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-from chromosome3d_tpu.restraints import build_restraints
-from chromosome3d_tpu.solver.anneal import solve_single
-from chromosome3d_tpu.solver.init import mds_init
-from chromosome3d_tpu.solver.sharded import solve_single_sharded
+from chromosome3d.config import AnnealConfig, RestraintConfig, fast_anneal
+from chromosome3d.ops.energy import dense_restraints_from_numpy
+from chromosome3d.restraints import build_restraints
+from chromosome3d.solver.anneal import solve_single
+from chromosome3d.solver.init import mds_init
+from chromosome3d.solver.sharded import solve_single_sharded
 
 
 def make_case(L):
@@ -58,8 +58,8 @@ def test_sharded_ensemble_matches_dense_landmark():
     same key — the sharded program IS the dense program, decomposed."""
     import dataclasses
 
-    from chromosome3d_tpu.solver.anneal import solve_ensemble_impl
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
+    from chromosome3d.solver.anneal import solve_ensemble_impl
+    from chromosome3d.solver.sharded import solve_ensemble_sharded
 
     L = 16 * 8
     dense = make_case(L)
@@ -90,10 +90,10 @@ def test_sharded_ensemble_matches_dense_landmark():
 def test_sharded_ensemble_padded_bead_mask():
     """Sharded ensemble on a padded problem (true L not divisible by the
     mesh): padding masked everywhere, coords zero on padding."""
-    from chromosome3d_tpu.config import RestraintConfig
-    from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-    from chromosome3d_tpu.restraints import build_restraints
-    from chromosome3d_tpu.solver.sharded import (
+    from chromosome3d.config import RestraintConfig
+    from chromosome3d.ops.energy import dense_restraints_from_numpy
+    from chromosome3d.restraints import build_restraints
+    from chromosome3d.solver.sharded import (
         pad_restraints_to_multiple,
         solve_ensemble_sharded,
     )
@@ -120,23 +120,18 @@ def test_sharded_ensemble_padded_bead_mask():
     assert np.abs(coords[:, :L, :]).max() > 1.0
 
 
-def test_sharded_ensemble_pallas_matches_jnp():
-    """use_pallas=True routes the sharded hot loop through the row-block
-    Pallas kernel (interpret mode on this CPU mesh); trajectories must track
-    the jnp row-block path on the same key."""
+def test_sharded_ensemble_pallas_matches_jnp(interpret_kernel):
+    """use_pallas=True routes the sharded hot loop through the GPU pair
+    kernel on each shard's row block (interpret mode on this CPU mesh);
+    trajectories must track the plain row-block path on the same key."""
     import dataclasses
 
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
+    from chromosome3d.solver.sharded import solve_ensemble_sharded
 
     L = 16 * 8
     dense = make_case(L)
-    # fuse_update=False isolates the PAIR kernel: with it on, the pallas
-    # arm takes the semi path (fused update companion, counter-hash noise)
-    # while the jnp arm keeps optax+threefry — different noise streams by
-    # design (the semi-vs-single-chip tests below cover that route)
     base_cfg = dataclasses.replace(
         fast_anneal(AnnealConfig()), init="landmark", landmark_count=16,
-        fuse_update=False,
     )
     key = jax.random.PRNGKey(11)
     mesh = Mesh(np.array(jax.devices()), ("beads",))
@@ -163,34 +158,15 @@ def test_sharded_ensemble_pallas_matches_jnp():
         )
 
 
-def test_sharded_ensemble_fused_matches_single_chip():
-    """The fused sharded path (strip-triangular pair kernel distributed over
-    the mesh axis + the fused update companion, round-4 item 1) must
-    reproduce the SINGLE-CHIP fused/semi solve on the same key: the
-    companion's counter-hash noise stream is seed-deterministic and the
-    seed derivation mirrors solve_ensemble_impl's key sequence, so the
-    trajectories coincide up to fp reordering of the pair sums."""
-    import dataclasses
+def _sharded_vs_single(cfg, dense, key, n_dev):
+    from chromosome3d.solver.anneal import solve_ensemble_impl
+    from chromosome3d.solver.sharded import solve_ensemble_sharded
 
-    from chromosome3d_tpu.ops.pallas_energy import strip_tri_feasible
-    from chromosome3d_tpu.solver.anneal import solve_ensemble_impl
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
-
-    L = 16 * 8
-    assert strip_tri_feasible(L, 8)
-    dense = make_case(L)
-    cfg = dataclasses.replace(
-        fast_anneal(AnnealConfig()), init="landmark", landmark_count=16,
-        use_pallas=True, exact_restraints=True, fuse_update=True,
-    )
-    key = jax.random.PRNGKey(13)
-    mesh = Mesh(np.array(jax.devices()), ("beads",))
+    mesh = Mesh(np.array(jax.devices()[:n_dev]), ("beads",))
     sharded = jax.jit(
         lambda d, k: solve_ensemble_sharded(mesh, d, cfg, k, 2)
     )(dense, key)
-    ref = jax.jit(
-        lambda d, k: solve_ensemble_impl(d, cfg, k, 2)
-    )(dense, key)
+    ref = jax.jit(lambda d, k: solve_ensemble_impl(d, cfg, k, 2))(dense, key)
     np.testing.assert_allclose(
         np.asarray(sharded.history), np.asarray(ref.history), rtol=2e-3
     )
@@ -204,109 +180,45 @@ def test_sharded_ensemble_fused_matches_single_chip():
         )
 
 
-def test_sharded_ensemble_fused_single_device_degenerate():
-    """The n_dev=1 degenerate of the fused sharded path — EXACTLY the shape
-    the real chip benchmarks (one physical device) — must reproduce the
-    single-chip fused solve. L=48 makes strip-tri feasible at TM=16 (3
-    tiles), so this exercises the strip-triangular kernel with the whole
-    round-robin pairing on one shard."""
+def test_sharded_ensemble_fused_matches_single_chip(interpret_kernel):
+    """The sharded kernel path (each shard's row block with its global row
+    offset) must reproduce the single-device kernel solve on the same key:
+    both draw the same threefry noise, so the trajectories coincide up to
+    float reordering of the pair sums."""
     import dataclasses
 
-    from chromosome3d_tpu.ops.pallas_energy import strip_tri_feasible
-    from chromosome3d_tpu.solver.anneal import solve_ensemble_impl
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
-
-    L = 48
-    assert strip_tri_feasible(L, 1)
-    dense = make_case(L)
     cfg = dataclasses.replace(
         fast_anneal(AnnealConfig()), init="landmark", landmark_count=16,
-        use_pallas=True, exact_restraints=True, fuse_update=True,
+        use_pallas=True, exact_restraints=True,
     )
-    key = jax.random.PRNGKey(13)
-    mesh = Mesh(np.array(jax.devices()[:1]), ("beads",))
-    s = jax.jit(lambda d, k: solve_ensemble_sharded(mesh, d, cfg, k, 2))(dense, key)
-    p = jax.jit(lambda d, k: solve_ensemble_impl(d, cfg, k, 2))(dense, key)
-    np.testing.assert_allclose(
-        np.asarray(s.coords), np.asarray(p.coords), atol=5e-3
-    )
-    for k2 in ("noe", "bon", "vdw", "overall"):
-        np.testing.assert_allclose(
-            np.asarray(s.energies[k2]), np.asarray(p.energies[k2]), rtol=2e-3
-        )
+    _sharded_vs_single(cfg, make_case(16 * 8), jax.random.PRNGKey(13), 8)
 
 
-def test_sharded_ensemble_semi_general_matches_single_chip():
-    """GENERAL (windowed) restraints on the fused-update sharded path: the
-    row-block pair kernel (exact=False) feeds the fused update companion —
-    round 4's last dispatch symmetry. Must reproduce the single-chip
-    semi-general solve on the same key (shared counter-hash noise stream,
-    mirrored seed derivation), noise ON."""
+def test_sharded_ensemble_fused_single_device_degenerate(interpret_kernel):
+    """The n_dev=1 degenerate of the sharded kernel path (the shape of a
+    one-card machine) must reproduce the single-device kernel solve."""
     import dataclasses
 
-    from chromosome3d_tpu.solver.anneal import solve_ensemble_impl
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
+    cfg = dataclasses.replace(
+        fast_anneal(AnnealConfig()), init="landmark", landmark_count=16,
+        use_pallas=True, exact_restraints=True,
+    )
+    _sharded_vs_single(cfg, make_case(48), jax.random.PRNGKey(13), 1)
 
-    L = 16 * 8
-    dense = make_case(L)
+
+def test_sharded_ensemble_semi_general_matches_single_chip(interpret_kernel):
+    """GENERAL (windowed) restraints: the sharded kernel path reads the
+    (lo, hi, w) tiles and must reproduce the single-device kernel solve on
+    the same key, noise ON."""
+    import dataclasses
+
+    dense = make_case(16 * 8)
     dense = dense._replace(lo=dense.lo * 0.8, hi=dense.hi * 1.2)
     cfg = dataclasses.replace(
         fast_anneal(AnnealConfig()), init="landmark", landmark_count=16,
-        use_pallas=True, exact_restraints=False, fuse_update=True,
+        use_pallas=True, exact_restraints=False,
     )
-    key = jax.random.PRNGKey(19)
-    mesh = Mesh(np.array(jax.devices()), ("beads",))
-    sharded = jax.jit(
-        lambda d, k: solve_ensemble_sharded(mesh, d, cfg, k, 2)
-    )(dense, key)
-    ref = jax.jit(
-        lambda d, k: solve_ensemble_impl(d, cfg, k, 2)
-    )(dense, key)
-    np.testing.assert_allclose(
-        np.asarray(sharded.history), np.asarray(ref.history), rtol=2e-3
-    )
-    np.testing.assert_allclose(
-        np.asarray(sharded.coords), np.asarray(ref.coords), atol=5e-3
-    )
-    for k2 in ("noe", "bon", "vdw", "overall"):
-        np.testing.assert_allclose(
-            np.asarray(sharded.energies[k2]), np.asarray(ref.energies[k2]),
-            rtol=2e-3,
-        )
-
-
-def test_sharded_ensemble_fused_rowblock_fallback(monkeypatch):
-    """When strip-tri tiling is infeasible the fused sharded path keeps the
-    row-block pair kernel but still runs the fused update companion; the
-    result must match the strip-tri route (same seed-deterministic noise)."""
-    import dataclasses
-
-    import chromosome3d_tpu.solver.sharded as sh
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
-
-    L = 16 * 8
-    dense = make_case(L)
-    cfg = dataclasses.replace(
-        fast_anneal(AnnealConfig()), init="landmark", landmark_count=16,
-        use_pallas=True, exact_restraints=True, fuse_update=True,
-    )
-    key = jax.random.PRNGKey(17)
-    mesh = Mesh(np.array(jax.devices()), ("beads",))
-    r_strip = jax.jit(
-        lambda d, k: solve_ensemble_sharded(mesh, d, cfg, k, 2)
-    )(dense, key)
-    import chromosome3d_tpu.ops.pallas_energy as pe
-
-    monkeypatch.setattr(pe, "strip_tri_feasible", lambda L, n: False)
-    r_row = jax.jit(
-        lambda d, k: solve_ensemble_sharded(mesh, d, cfg, k, 2)
-    )(dense, key)
-    np.testing.assert_allclose(
-        np.asarray(r_row.history), np.asarray(r_strip.history), rtol=2e-3
-    )
-    np.testing.assert_allclose(
-        np.asarray(r_row.coords), np.asarray(r_strip.coords), atol=5e-3
-    )
+    _sharded_vs_single(cfg, dense, jax.random.PRNGKey(19), 8)
 
 
 def test_genome_sharded_2d_matches_1d():
@@ -315,8 +227,8 @@ def test_genome_sharded_2d_matches_1d():
     mesh — the same shard body, vmapped and data-parallel over chromosomes."""
     import dataclasses
 
-    from chromosome3d_tpu.ops.energy import DenseRestraints
-    from chromosome3d_tpu.solver.sharded import (
+    from chromosome3d.ops.energy import DenseRestraints
+    from chromosome3d.solver.sharded import (
         solve_ensemble_sharded,
         solve_genome_sharded,
     )
@@ -327,9 +239,9 @@ def test_genome_sharded_2d_matches_1d():
     base2 = rng.gamma(2.0, 40.0, size=(L, L))
     m2 = (base2 + base2.T) / 2
     np.fill_diagonal(m2, 4000.0)
-    from chromosome3d_tpu.config import RestraintConfig
-    from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-    from chromosome3d_tpu.restraints import build_restraints
+    from chromosome3d.config import RestraintConfig
+    from chromosome3d.ops.energy import dense_restraints_from_numpy
+    from chromosome3d.restraints import build_restraints
 
     d2 = dense_restraints_from_numpy(build_restraints(m2, RestraintConfig()))
     cfg = dataclasses.replace(
@@ -377,10 +289,10 @@ def test_sharded_ensemble_bf16_stored_tiles():
     single-chip solve on the SAME stored tiles."""
     import dataclasses
 
-    from chromosome3d_tpu.ops.device_prep import exact_tiles_from_if_device
-    from chromosome3d_tpu.ops.energy import auto_weight_exponent
-    from chromosome3d_tpu.solver.anneal import solve_ensemble_impl
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
+    from chromosome3d.ops.device_prep import exact_tiles_from_if_device
+    from chromosome3d.ops.energy import auto_weight_exponent
+    from chromosome3d.solver.anneal import solve_ensemble_impl
+    from chromosome3d.solver.sharded import solve_ensemble_sharded
 
     L = 16 * 8
     rng = np.random.RandomState(2)

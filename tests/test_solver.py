@@ -7,12 +7,12 @@ import jax
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.config import AnnealConfig, RestraintConfig, fast_anneal
-from chromosome3d_tpu.metrics import spearman_if_inv_d
-from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-from chromosome3d_tpu.restraints import build_restraints
-from chromosome3d_tpu.solver.anneal import build_schedule, solve_ensemble
-from chromosome3d_tpu.solver.init import mds_init, random_init, smooth_bounds, spiral_init
+from chromosome3d.config import AnnealConfig, RestraintConfig, fast_anneal
+from chromosome3d.metrics import spearman_if_inv_d
+from chromosome3d.ops.energy import dense_restraints_from_numpy
+from chromosome3d.restraints import build_restraints
+from chromosome3d.solver.anneal import build_schedule, solve_ensemble
+from chromosome3d.solver.init import mds_init, random_init, smooth_bounds, spiral_init
 
 REF = "/root/reference"
 
@@ -51,7 +51,7 @@ def test_mds_init_embeds_exact_distances():
     rng = np.random.RandomState(0)
     pts = rng.randn(12, 3) * 5
     d = np.linalg.norm(pts[:, None] - pts[None, :], axis=-1)
-    from chromosome3d_tpu.ops.energy import DenseRestraints
+    from chromosome3d.ops.energy import DenseRestraints
     import jax.numpy as jnp
 
     mask = 1.0 - np.eye(12)
@@ -110,7 +110,7 @@ def test_energy_decreases_over_anneal(tiny_matrix):
 def test_beats_reference_chr21_1mb(chr21_1mb_matrix):
     """End-to-end quality: our best model must beat the published
     chr21_1mb model's Spearman(IF, 1/d) (BASELINE.md north star)."""
-    from chromosome3d_tpu.io.pdb import read_ca_pdb
+    from chromosome3d.io.pdb import read_ca_pdb
 
     path = os.path.join(REF, "output_models", "chr21_1mb_rank07_a11.pdb")
     if not os.path.exists(path):
@@ -145,7 +145,7 @@ def test_runtime_schedule_override(tiny_matrix):
     change the result without recompilation (sweep support)."""
     import jax.numpy as jnp
 
-    from chromosome3d_tpu.solver.anneal import Schedule
+    from chromosome3d.solver.anneal import Schedule
 
     r = build_restraints(tiny_matrix, RestraintConfig())
     dense = dense_restraints_from_numpy(r)
@@ -162,7 +162,7 @@ def test_runtime_schedule_override(tiny_matrix):
 
 def test_gradient_clip_per_bead():
     """AnnealConfig.gradient_clip bounds each bead's raw-gradient norm."""
-    from chromosome3d_tpu.solver.anneal import _clip_per_bead
+    from chromosome3d.solver.anneal import _clip_per_bead
 
     rng = np.random.RandomState(3)
     g = jax.numpy.asarray(rng.normal(0, 50.0, size=(4, 16, 3)), jax.numpy.float32)
@@ -247,10 +247,10 @@ def test_auto_init_dispatch():
     import jax
     import numpy as np
 
-    from chromosome3d_tpu.config import AnnealConfig, RestraintConfig, fast_anneal
-    from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-    from chromosome3d_tpu.restraints import build_restraints
-    from chromosome3d_tpu.solver.anneal import solve_ensemble_impl
+    from chromosome3d.config import AnnealConfig, RestraintConfig, fast_anneal
+    from chromosome3d.ops.energy import dense_restraints_from_numpy
+    from chromosome3d.restraints import build_restraints
+    from chromosome3d.solver.anneal import solve_ensemble_impl
 
     rng = np.random.RandomState(0)
     L = 24
@@ -271,24 +271,29 @@ def test_auto_init_dispatch():
 
 
 def test_resolve_use_pallas_semantics():
-    """use_pallas=None resolves by backend (False on this CPU test env);
-    explicit True/False force regardless."""
-    from chromosome3d_tpu.config import AnnealConfig
-    from chromosome3d_tpu.solver.anneal import resolve_use_pallas
+    """use_pallas=None resolves by backend (the GPU kernel on GPU, the
+    plain path here); False forces the plain path; True on a backend the
+    kernel cannot compile for raises instead of running the interpreter."""
+    from chromosome3d.config import AnnealConfig
+    from chromosome3d.solver.anneal import resolve_use_pallas
 
     import jax
 
     auto = resolve_use_pallas(AnnealConfig())
-    assert auto == (jax.default_backend() == "tpu")
-    assert resolve_use_pallas(AnnealConfig(use_pallas=True)) is True
+    assert auto == (jax.default_backend() == "gpu")
     assert resolve_use_pallas(AnnealConfig(use_pallas=False)) is False
+    if jax.default_backend() == "gpu":
+        assert resolve_use_pallas(AnnealConfig(use_pallas=True)) is True
+    else:
+        with pytest.raises(ValueError, match="GPU"):
+            resolve_use_pallas(AnnealConfig(use_pallas=True))
 
 
 def test_chunked_final_terms_gate(tiny_matrix, monkeypatch):
     """Beyond _CHUNKED_TERMS_MIN_L the final canonical-terms pass runs the
     row-chunked evaluation; its reported energies must match the dense pass
     to float-reassociation tolerance on the same solved coordinates."""
-    import chromosome3d_tpu.solver.anneal as anneal_mod
+    import chromosome3d.solver.anneal as anneal_mod
 
     dense = dense_restraints_from_numpy(
         build_restraints(tiny_matrix, RestraintConfig())

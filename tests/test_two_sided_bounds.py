@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chromosome3d_tpu.ops.energy import DenseRestraints
-from chromosome3d_tpu.solver.init import (
+from chromosome3d.ops.energy import DenseRestraints
+from chromosome3d.solver.init import (
     mds_init,
     smooth_bounds,
     smooth_bounds_two_sided,
@@ -96,7 +96,7 @@ def test_landmark_targets_respect_lower_bounds():
     """Round-4 item: the landmark relaxation (the init the at-scale path
     ALWAYS uses) must give two-sided semantics too — no restrained landmark
     pair's embed target below its lower bound."""
-    from chromosome3d_tpu.solver.init import landmark_init, landmark_targets
+    from chromosome3d.solver.init import landmark_init, landmark_targets
 
     # triangle gadgets (a,b)/(b,c)/(a,c) with lo(a,c) strictly between the
     # MIDPOINT path (what the one-sided relaxation walks — undercuts) and
@@ -146,9 +146,9 @@ def test_sharded_landmark_two_sided_matches_single():
     import jax
     from jax.sharding import Mesh
 
-    from chromosome3d_tpu.config import AnnealConfig, fast_anneal
-    from chromosome3d_tpu.solver.anneal import solve_ensemble
-    from chromosome3d_tpu.solver.sharded import solve_ensemble_sharded
+    from chromosome3d.config import AnnealConfig, fast_anneal
+    from chromosome3d.solver.anneal import solve_ensemble
+    from chromosome3d.solver.sharded import solve_ensemble_sharded
 
     L = 16 * len(jax.devices())
     rng = np.random.RandomState(6)
@@ -175,7 +175,7 @@ def test_sharded_landmark_two_sided_matches_single():
 def test_restraints_pipeline_auto_enables(tmp_path, monkeypatch):
     """run_restraints_pipeline on a tbl with real deviation windows must
     auto-enable embed_two_sided (and still solve)."""
-    import chromosome3d_tpu.pipeline as pl
+    import chromosome3d.pipeline as pl
 
     L = 12
     lines = [
@@ -197,7 +197,7 @@ def test_restraints_pipeline_auto_enables(tmp_path, monkeypatch):
         return real(dense, anneal_cfg, key, n_models, bm, or_groups=or_groups)
 
     monkeypatch.setattr(pl, "_aot_solve", spy)
-    from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, fast_anneal
+    from chromosome3d.config import AnnealConfig, PipelineConfig, fast_anneal
 
     cfg = PipelineConfig(
         model_count=2, anneal=fast_anneal(AnnealConfig()),
@@ -213,7 +213,7 @@ def test_landmark_chain_only_does_not_explode():
     geometry) used to explode landmark_triangulate — 1/sqrt(lambda ~ 0)
     amplified degenerate eigendirections ~1000x. Degenerate dims must be
     dropped (matching classical MDS), leaving a sane line-like init."""
-    from chromosome3d_tpu.solver.init import landmark_init
+    from chromosome3d.solver.init import landmark_init
 
     L = 64
     entries = {(i, i + 1): (3.8, 3.8) for i in range(L - 1)}
@@ -234,13 +234,13 @@ def test_landmark_targets_row_blocked_bitwise_equal():
     order-independent, and each cand element is computed identically."""
     import numpy as np
 
-    from chromosome3d_tpu.config import RestraintConfig
-    from chromosome3d_tpu.ops.energy import (
+    from chromosome3d.config import RestraintConfig
+    from chromosome3d.ops.energy import (
         auto_weight_exponent,
         exact_restraints_from_numpy,
     )
-    from chromosome3d_tpu.restraints import build_restraints
-    import chromosome3d_tpu.solver.init as ini
+    from chromosome3d.restraints import build_restraints
+    import chromosome3d.solver.init as ini
 
     rng = np.random.RandomState(0)
     L = 200
